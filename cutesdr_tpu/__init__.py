@@ -1,4 +1,4 @@
-"""cutesdr_tpu — a TPU-native software-defined-radio framework.
+"""cutesdr_tpu — a software-defined-radio framework in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of CuteSDR 1.02
 (reference: C++/Qt desktop SDR receiver).  The signal chain

@@ -2,7 +2,7 @@
 shared display path and a monitor channel feeding the audio queue.
 
 Reference analogue: none — CuteSDR runs exactly one demod chain
-(dsp/demodulator.cpp); the bank is the TPU-native capability it unlocks
+(dsp/demodulator.cpp); the bank is the batched capability it unlocks
 (BASELINE config 4: 64 channels from one stream).  The session mirrors
 ReceiverSession's contract (``pump`` / controls / metrics) so the CLI and
 the web UI drive either interchangeably.

@@ -20,7 +20,7 @@ The PLL (+DC tracker) runs in one of two forms, chosen per block on-device:
   (proved by induction: err[n+1] = -wrap(theta[n+1]+phase[n+1]) equals the
   linear e[n+1] while |e| <= pi).  A is constant with spectral radius
   sqrt(1-a) << 1, so the whole block is a short causal FIR of psi with the
-  truncated impulse response A^d — a convolution (MXU/VPU-parallel), not a
+  truncated impulse response A^d — a convolution (fully parallel), not a
   scan.  Validity (max |e| < pi, max |f| <= clamp) is checked from the
   linear solution itself; a violating block falls back to
 * **the sequential scan** (lax.cond, so only one branch executes per
@@ -161,31 +161,13 @@ def _wrap_pi(e):
     return e - K_2PI * jnp.round(e / K_2PI)
 
 
-def _pll_scan(params: FmParams, carry: FmCarry, theta: jax.Array,
-              fast: bool = False):
+def _pll_scan(params: FmParams, carry: FmCarry, theta: jax.Array):
     # The phase detector atan2(x·e^{jφ}) equals wrap(arg(x) + φ), so the
-    # per-sample arg(x) vectorizes over the whole block on the VPU and the
+    # per-sample arg(x) vectorizes over the whole block and the
     # serial recurrence is pure arithmetic — ~4× faster than rotating and
     # atan2-ing inside the scan, and numerically equivalent (φ is even
     # wrapped every step instead of once per block as in the reference,
     # dsp/fmdemod.cpp:189).
-    #
-    # fast=True (single-stream TPU call sites only — the kernel's SMEM
-    # state is not vmappable) routes the identical recurrence through the
-    # scalar-core loop kernel (kernels/seqloop; measured 3.7x the XLA
-    # scan on v5e — 621 -> 167 ns/sample).
-    if fast:
-        from cutesdr_tpu.kernels import seqloop
-        if seqloop.use_kernel(theta):
-            phase, freq, freqs, err = seqloop.fm_pll_scan(
-                params.pll_alpha, params.pll_beta, params.nco_limit,
-                carry.nco_phase, carry.nco_freq, theta)
-            # DC tracker + audio scaling are linear post-processing: run
-            # them vectorized in the offset frame (also the better f32
-            # formulation) instead of inside the serial loop
-            audio, dc_last = _dc_track(params, freqs, carry.freq_error_dc)
-            return phase, freq, dc_last, audio, err
-
     def step(c, th):
         phase, freq, dc = c
         err = -_wrap_pi(th + phase)
@@ -197,7 +179,7 @@ def _pll_scan(params: FmParams, carry: FmCarry, theta: jax.Array,
 
     (phase, freq, dc), (audio, err) = lax.scan(
         step, (carry.nco_phase, carry.nco_freq, carry.freq_error_dc), theta,
-        unroll=8)   # ~2x on the serialized-VPU scan floor (r4 honest fence)
+        unroll=8)
     return jnp.mod(phase, K_2PI), freq, dc, audio, err
 
 
@@ -287,7 +269,7 @@ def _pll(params: FmParams, carry: FmCarry, x: jax.Array):
 
     def run_scan(_):
         return (jnp.asarray(TIER_SCAN, jnp.int32),
-                _pll_scan(params, carry, theta, fast=True))
+                _pll_scan(params, carry, theta))
 
     if not _chunkable(theta.shape[-1]):
         return lax.cond(valid, take_linear, run_scan, None)

@@ -71,29 +71,14 @@ def _wrap_pi(e):
     return e - K_2PI * jnp.round(e / K_2PI)
 
 
-def _pll_scan(params: SamParams, carry: SamCarry, theta: jax.Array,
-              fast: bool = False):
+def _pll_scan(params: SamParams, carry: SamCarry, theta: jax.Array):
     """Sequential loop; returns (phase', freq', pre-update phase sequence).
 
     The phase detector atan2(x·e^{-jφ}) equals wrap(arg(x) − φ): arg(x) is
     vectorized over the block, the serial recurrence carries only cheap
     arithmetic, and the baseband rotation x·e^{-jφ} is applied vectorized
     afterwards from the emitted phase sequence.
-
-    fast=True (single-stream TPU call sites only — not vmappable) routes
-    the identical recurrence through the scalar-core loop kernel
-    (kernels/seqloop), lifting the carrier-less-noise worst case off the
-    ~2.8 us/iteration XLA scan floor — the r5 answer to the chunked tier
-    being unviable here (see _pll's liveness measurement).
     """
-    if fast:
-        from cutesdr_tpu.kernels import seqloop
-        if seqloop.use_kernel(theta):
-            phase, freq, prev = seqloop.sam_pll_scan(
-                params.pll_alpha, params.pll_beta, params.nco_limit,
-                carry.nco_phase, carry.nco_freq, theta)
-            return phase, freq, prev
-
     def step(c, th):
         phase, freq = c
         err = _wrap_pi(th - phase)
@@ -104,7 +89,7 @@ def _pll_scan(params: SamParams, carry: SamCarry, theta: jax.Array,
 
     (phase, freq), phases = lax.scan(
         step, (carry.nco_phase, carry.nco_freq), theta,
-        unroll=8)   # ~2x on the serialized-VPU scan floor (r4 honest fence)
+        unroll=8)
     # note: the reference rotates by the *pre-update* phase; emitting the
     # post-update phase differs by one loop increment — the PLL output is a
     # tracked baseband either way (lock behavior identical); rotate with the
@@ -148,8 +133,7 @@ def _pll(params: SamParams, carry: SamCarry, x: jax.Array):
     # — chunked_scan's bitwise boundary check is not live at any chunk
     # size that beats the plain scan, so the tier would only add cost.
     # The scan fallback only runs during acquisition transients or on
-    # carrier-less noise; its cost is addressed by the scalar-core
-    # sequential kernel instead (kernels/seqloop, r5).
+    # carrier-less noise.
     theta = jnp.arctan2(x.imag, x.real)
     valid, linear = _pll_linear(params, carry, theta)
 
@@ -158,7 +142,7 @@ def _pll(params: SamParams, carry: SamCarry, x: jax.Array):
 
     def run_scan(_):
         return (jnp.asarray(TIER_SCAN, jnp.int32),
-                _pll_scan(params, carry, theta, fast=True))
+                _pll_scan(params, carry, theta))
 
     tier, (phase, freq, prev) = lax.cond(valid, take_linear, run_scan, None)
     base = x * jax.lax.complex(jnp.cos(prev), -jnp.sin(prev))

@@ -44,7 +44,7 @@ class DecimationPlan:
         Composition rule for cascaded decimators: H_eq(z) = prod_k H_k(z^(2^k)).
         Convolving the zero-stuffed stage responses gives one FIR whose
         stride-``decimation`` polyphase implementation is mathematically
-        identical to running the cascade — this powers the fused MXU path.
+        identical to running the cascade — this powers the fused path.
         """
         h = np.array([1.0])
         for k, name in enumerate(self.stages):

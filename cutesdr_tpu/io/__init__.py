@@ -1,7 +1,7 @@
 """Host-side I/O plane: ASCP protocol, device discovery, radio client,
 AD6620 loader, file sources/sinks, rate-locked audio output.
 
-This is the control/transport layer around the TPU compute path — the
+This is the control/transport layer around the device compute path — the
 equivalent of the reference's interface/ directory, redesigned as asyncio
 host code (with an optional native C++ UDP ingest, see native/).
 """

@@ -8,7 +8,7 @@ watchdog, NCO-spur DC auto-cal) and the network transport (TCP reconnect
 state machine, ASCP stream assembly, UDP int24/int16 datagram decoding with
 sequence-gap accounting).
 
-Redesigned as asyncio host code feeding blocks to the TPU pipeline; the
+Redesigned as asyncio host code feeding blocks to the device pipeline; the
 hot UDP decode is vectorized NumPy (or the native C++ ring-buffer ingest in
 cutesdr_tpu.io.native_ingest for multi-MSPS rates).
 """

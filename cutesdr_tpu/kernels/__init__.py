@@ -1,14 +1,6 @@
-"""Pallas TPU kernels for the hot front-end ops.
+"""Pallas kernels for the hot front-end ops (GPU, through Triton).
 
-These fuse stages that XLA keeps separate to cut HBM traffic; each kernel
-has an XLA-composed reference implementation and equivalence tests (CPU
-interpret mode), and bench.py compares both paths on hardware.
+Each kernel has a plain XLA reference implementation and equivalence tests
+(interpret mode on the CPU); the receiver selects a kernel only where it
+measured faster on the card (pipeline/receiver.resolve_front_end).
 """
-
-from cutesdr_tpu.kernels import _cachefix
-
-# deterministic Mosaic payloads -> persistent-cache hits for Pallas
-# programs (see _cachefix docstring for the diagnosis)
-_cachefix.apply()
-
-from cutesdr_tpu.kernels.mixdec import MixDecimate  # noqa: E402

@@ -1,73 +1,35 @@
-"""Fused NCO-mix + polyphase-decimate Pallas kernel.
+"""Fused NCO-mix + polyphase decimation: a Pallas kernel through Triton.
 
-The XLA-composed front end materializes the mixed stream to HBM between the
-NCO multiply and the decimation conv (~24 B of HBM traffic per input
-sample); this kernel streams raw input HBM→VMEM once, mixes in VMEM, and
-writes only the decimated output (~8.2 B/sample) — the front end is
-bandwidth-bound, so that bound is the speed of light this kernel chases.
+The XLA-composed front end (ops.nco.process then ops.decimator.fused_process)
+writes the mixed complex stream to device memory and reads it back for a
+single-channel strided convolution.  This kernel reads the raw f32 re/im
+planes once and writes only the decimated output.
 
-Mosaic layout strategy (TPU tiles are (8 sublanes, 128 lanes); arbitrary
-reshapes/unaligned slices are not lowerable):
+The oscillator is folded out of the per-sample path.  With the exact uint32
+DDS phase phi(t) = base + t*inc (ops/nco.py) and the flipped composed taps
+hf of length L, the fused decimator computes
 
-  * the raw stream keeps its natural layout, viewed host-side as rows of
-    128 consecutive samples (a FREE reshape — wider lane views retile,
-    DESIGN §27): Z[m, q] = z[128·m + q]; when D is a multiple of 128
-    each output consumes G = D/128 consecutive rows (wide-128 form, r5)
-    and lands on row G·n' after the band-roll alignment;
-  * each grid step DMAs a row-aligned window (overlapping windows via
-    dynamic row offsets — BlockSpec windows cannot overlap; the window is
-    rounded up to 8 rows, the Mosaic scratch-shape tile),
-  * oscillator phases come from the exact uint32 DDS accumulator on a 2-D
-    iota (tail samples sit before the block start; unsigned wraparound
-    handles the negative offsets — see ops/nco.py),
-  * decimation-by-D outputs split by residue r = n mod R (R = lane/D; for
-    the wide-row form R = 1 and each row yields one output):
-    y[R·n' + r] = Σ_c  Z[n'+c, :] · W4[:, R·c+r]  — ONE
-    [rows, lane] × [lane, R·C] MXU matmul with a full lane-wide
-    contraction, then a C-band diagonal sum per residue, where
-    W4[q, R·c+r] = w[lane·c + q − D·r] places the (flipped, zero-padded)
-    composed taps per residue;
-  * the output block is [2R, TO4] (re residues stacked over im residues),
-    satisfying the (8, 128) tiling rule; the host interleaves residues back
-    to time order at the (cheap) decimated rate.
+    y[n] = sum_j hf[j] * x'[D*n + j - T] * e^{j*phi(D*n + j - T)}
 
-Equivalence with ops.nco.process + ops.decimator.fused_process is asserted
-in tests/test_kernels.py (interpret mode on CPU, compiled on TPU).
+(x' = x - dc, T = L-1-d the carried raw history).  Splitting the phase,
+phi(D*n + j - T) = phi(D*n - T) + j*inc (mod 2^32), gives
 
-r5 ablation findings (bench_mixdec_ablation, honest D2H-slope fence,
-8.4M-sample ×32 flagship blocks on v5e):
+    y[n] = e^{j*phi(D*n - T)} * (sum_j c[j] * x[D*n + j - T]  -  dc * S)
 
-  * the kernel is per-tile-overhead bound, not HBM/MXU bound (11% HBM,
-    9% MXU at the old 512 tile): tile 4096 runs 0.852 -> 0.589 ms and is
-    now the receiver's preference (pipeline/receiver._mixdec_tile);
-  * the manual overlapping-window DMAs move only ~230 GB/s while
-    Mosaic's OWN BlockSpec pipeline streams 792 GB/s (97% of HBM), so
-    the window is now fed by three NON-overlapping block streams
-    (backward halo / main tile / small lookahead) assembled by cheap
-    VMEM copies (_kernel_bs); DMA-only time halved (0.302 -> 0.153 ms)
-    and the ×32 kernel is compute-bound (oscillator+mix ~0.17 ms,
-    matmul+band-sum ~0.26 ms per 8.4M);
-  * the old D-multiple-of-128 form (lane = D = 256) paid a HIDDEN XLA
-    RELAYOUT: reshaping a flat f32 stream to (rows, 256) physically
-    retiles it (measured 237 GB/s vs 794 GB/s for the free (rows, 128)
-    reshape).  CLOSED by the wide-128 form (DESIGN §28): lane stays
-    128, one output consumes G = D/128 consecutive rows, and the
-    stride-G output extraction uses the reshape-column trick (_extract)
-    — measured 0.237 ms/4.19M block (17.7 GSPS) at D=256 vs ~0.33
-    kernel+retile before;
-  * dot precision DEFAULT (one bf16 pass) buys only ~8% — HIGHEST stays
-    (the -77 dB single-pass floor is not worth 8%);
-  * the stage terms ADD UP: full ≈ dma + osc/mix + matmul (0.15 + 0.17
-    + 0.26 ≈ the measured ~0.58 ms/8.4M at ×32), i.e. the BlockSpec
-    streams' copy-in is NOT hidden behind compute despite the automatic
-    double-buffering.  Overlapping it (so full → max(dma, compute) ≈
-    0.43) is the top remaining front-end lever (~0.15 ms/step at the
-    flagship); candidates: fewer input streams (the halo/main/lookahead
-    triple re-reads the same planes), or compute on the previous tile
-    while the scratch assembly of the next runs.  Tried and measured
-    no change (r5): dimension_semantics=("parallel",) on the grid —
-    0.564 vs 0.596 ms with fully overlapping rep spreads, so the
-    serialization is not the default "arbitrary" cross-step ordering.
+with complex taps c[j] = hf[j] * e^{j*2pi*(j*inc mod 2^32)/2^32} and
+S = sum_j c[j].  Both rotations come from the exact uint32 accumulator, so
+the phase stays drift-free; the kernel is a complex FIR with no
+transcendentals, and the per-output rotation and DC term are an
+output-rate elementwise epilogue that XLA fuses.
+
+Kernel layout: the input block is viewed as rows of D samples
+(X[r, p] = x[r*D + p], a free reshape), the taps as Q = H+1 rows of D
+(H = ceil(T/D) rows of history, zero-padded at the front), so output n is
+sum_q X[n-H+q, :] . C[q, :].  One program owns BM consecutive outputs and
+loops over the Q tap rows, accumulating a [BM, D] complex tile in f32 FMAs
+(never TF32) and reducing over D at the end.  The first outputs, whose
+window reaches into the carried history, are computed by the plain XLA
+form on a short slice, so every kernel load is in bounds and unmasked.
 """
 
 from __future__ import annotations
@@ -79,769 +41,163 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
 from cutesdr_tpu.design.decimation_plan import DecimationPlan
 from cutesdr_tpu.ops import decimator as dec_ops
+from cutesdr_tpu.ops import nco as nco_ops
+from cutesdr_tpu.ops.util import complex_strided_corr
 from cutesdr_tpu.types import K_2PI, complex_zeros
 
 _TWO32 = 4294967296.0
-_DOT_PRECISION = jax.lax.Precision.HIGHEST
-LANE = 128
+TILE_ELEMS = 4096         # complex elements of one program's [BM, D] tile
+NUM_WARPS = 4
 
 
-def _extract(acc, TO4, G):
-    """Select the output rows of a [m_rows, 1] band-summed column: row
-    G·n' holds output n' (G = input rows consumed per output; 1 for the
-    classic forms, D/128 for the wide-128 form).  Strided sublane slices
-    of VALUES do not lower on Mosaic (vector.extract_strided_slice wants
-    stride 1) — but the [G·TO4, 1] -> [TO4, G] reshape + column-0 slice
-    does (verified on v5e), and is a tiny in-register relayout."""
-    if G == 1:
-        return acc[:TO4]
-    return acc[0:G * TO4].reshape(TO4, G)[:, 0:1]
+def supported(decimation: int) -> bool:
+    """Triton block shapes are powers of two: D = 2 ... 512 (every plan
+    decimates by 2^k)."""
+    return 2 <= decimation <= 512 and decimation & (decimation - 1) == 0
 
 
-def _compute(i, base, inc, zr, zi, dcr, dci, w4, y_ref,
-             *, TO4, R, C, halo_rows, lane, wide_cols, m_rows,
-             base_off=0, band_roll=False, stage="full",
-             dot_precision=_DOT_PRECISION, G=1):
-    """Shared mix+decimate body on a filled [m_rows, lane] scratch pair.
-    zr/zi hold z rows [i*TO4*G, i*TO4*G + m_rows) of the tail||input
-    stream; dcr/dci is the NCO-spur DC cal subtracted in place (free
-    against the oscillator multiply).
-
-    ``stage`` (ablation instrumentation, bench_mixdec_ablation — VERDICT
-    r4 #1): 'dma' touches the DMA'd window and skips all compute;
-    'phase' runs the oscillator+mix but replaces the matmul with a lane
-    reduction; 'matmul' runs the matmul+band-sum on the raw window with
-    the oscillator skipped; 'full' (production) runs everything."""
-    if stage == "dma":
-        # cheapest op that still depends on every DMA'd row so nothing
-        # is dead-code-eliminated: one lane reduction per plane
-        acc_re = jnp.sum(zr, axis=1, keepdims=True)
-        acc_im = jnp.sum(zi, axis=1, keepdims=True)
-        for r in range(R):
-            y_ref[r, :] = jnp.transpose(_extract(acc_re, TO4, G))[0, :]
-            y_ref[R + r, :] = jnp.transpose(_extract(acc_im, TO4, G))[0, :]
-        return
-    # global sample of Z[m, q] is (i*TO4 + m - halo_rows)*lane + q, so the
-    # DDS phase splits exactly (uint32 wraparound algebra) into a per-ROW
-    # part and a per-LANE part, and the oscillator is the outer product
-    #   e^{j phi(m,q)} = e^{j phi_m(m)} * e^{j phi_q(q)}
-    # — cos/sin on m_rows + lane angles instead of m_rows*lane (~170x
-    # fewer transcendentals; the per-sample form was the kernel's single
-    # largest compute term).  The angle-addition expansion below is exact;
-    # the f32 products of unit phasors round at ~1e-7.
-    m_col = jax.lax.broadcasted_iota(jnp.uint32, (m_rows, 1), 0)
-    q_row = jax.lax.broadcasted_iota(jnp.uint32, (1, lane), 1)
-    acc_m = base + ((jnp.uint32(i * TO4 * G) + m_col - jnp.uint32(halo_rows))
-                    * (jnp.uint32(lane) * inc))
-    acc_q = q_row * inc
-    # Mosaic can't cast uint32->f32; reinterpret as int32, which maps
-    # the phase to [-pi, pi) — identical modulo 2*pi
-    scale = jnp.float32(K_2PI / _TWO32)
-    ang_m = pltpu.bitcast(acc_m, jnp.int32).astype(jnp.float32) * scale
-    ang_q = pltpu.bitcast(acc_q, jnp.int32).astype(jnp.float32) * scale
-    cm, sm = jnp.cos(ang_m), jnp.sin(ang_m)      # [m_rows, 1]
-    cq, sq = jnp.cos(ang_q), jnp.sin(ang_q)      # [1, lane]
-    osc_re = cm * cq - sm * sq
-    osc_im = cm * sq + sm * cq
-
-    zr = zr - dcr
-    zi = zi - dci
-    if stage == "matmul":
-        mre, mim = zr, zi                    # oscillator skipped
-    else:
-        mre = zr * osc_re - zi * osc_im
-        mim = zr * osc_im + zi * osc_re
-    if stage == "phase":
-        # oscillator + mix done; replace the matmul/band-sum with one
-        # lane reduction so only the MXU term is removed
-        acc_re = jnp.sum(mre, axis=1, keepdims=True)
-        acc_im = jnp.sum(mim, axis=1, keepdims=True)
-        for r in range(R):
-            y_ref[r, :] = jnp.transpose(_extract(acc_re, TO4, G))[0, :]
-            y_ref[R + r, :] = jnp.transpose(_extract(acc_im, TO4, G))[0, :]
-        return
-
-    # precision=HIGHEST: TPU f32 dots default to ONE bf16 pass
-    # (preferred_element_type only sets the accumulator), which costs
-    # ~1.4e-4 relative on the decimated stream (-77 dB, measured
-    # on-chip at D=256) — the same floor fastfir4's _cmatmul hit
-    pre = jnp.dot(mre, w4, preferred_element_type=jnp.float32,
-                  precision=dot_precision)
-    pim = jnp.dot(mim, w4, preferred_element_type=jnp.float32,
-                  precision=dot_precision)
-
-    if wide_cols:
-        # wide-row (R=1) band sum without column extraction: tap band
-        # c lives in column (C-1-c) of the 128-padded matrix, so
-        # up-rolling column col by u = C-1-col sublanes aligns every
-        # band's diagonal pre[m+c, col] onto row m, and one lane
-        # reduction replaces the C strided column slices that made
-        # this form ~16x off roofline at 20 MSPS.  The per-column
-        # up-shift is applied as its binary decomposition — masked
-        # UNIFORM sublane rolls (Mosaic has no minor-dim stride
-        # rolls); wrapped-in bottom rows only ever land at
-        # m >= m_rows-C+1 >= G*TO4, outside the emitted window.
-        # For the wide-128 form (G > 1) output n' sits on row G*n'
-        # after alignment — _extract takes the stride-G sublane slice.
-        col = jax.lax.broadcasted_iota(jnp.int32, (m_rows, wide_cols), 1)
-        # base_off: the DMA halo is 8-row aligned but the tap matrix is
-        # built from the unaligned halo — every band's diagonal starts
-        # base_off rows later in the scratch (see __init__)
-        u = jnp.maximum(base_off + C - 1 - col, 0)
-        b = 0
-        while (1 << b) < base_off + C:
-            sft = 1 << b
-            take = (u & sft) != 0
-            pre = jnp.where(take, pltpu.roll(pre, shift=m_rows - sft,
-                                             axis=0), pre)
-            pim = jnp.where(take, pltpu.roll(pim, shift=m_rows - sft,
-                                             axis=0), pim)
-            b += 1
-        acc_re = jnp.sum(pre, axis=1, keepdims=True)   # [m_rows, 1]
-        acc_im = jnp.sum(pim, axis=1, keepdims=True)
-        y_ref[0, :] = jnp.transpose(_extract(acc_re, TO4, G))[0, :]
-        y_ref[1, :] = jnp.transpose(_extract(acc_im, TO4, G))[0, :]
-    elif band_roll:
-        assert G == 1, "residue forms are lane-128 with one output per row"
-        # residue form of the wide-row roll trick: w4 is padded to 128
-        # columns (col = R*c + r; pad columns are zero, so their rolls
-        # are harmless), each column is rolled UP by base_off + c rows to
-        # align every band's diagonal pre[n' + base_off + c, R*c + r]
-        # onto row n', then one masked lane reduction per residue
-        # replaces the 2*R*C unaligned row slices of the fallback below.
-        # Measured (x32 flagship, 8.4M blocks, honest slope fence): 0.506
-        # vs 0.577 ms — 1.14x, despite the 3.2x-wider padded matmul (the
-        # MXU had the headroom; the slice relayouts did not).  Wrapped-in
-        # bottom rows only land at n' >= m_rows - u >= TO4, outside the
-        # emitted window.
-        col = jax.lax.broadcasted_iota(jnp.int32, (m_rows, LANE), 1)
-        u = base_off + col // R
-        b = 0
-        while (1 << b) <= base_off + C - 1:
-            sft = 1 << b
-            take = (u & sft) != 0
-            pre = jnp.where(take, pltpu.roll(pre, shift=m_rows - sft,
-                                             axis=0), pre)
-            pim = jnp.where(take, pltpu.roll(pim, shift=m_rows - sft,
-                                             axis=0), pim)
-            b += 1
-        for r in range(R):
-            mask = (col % R) == r
-            acc_re = jnp.sum(jnp.where(mask, pre, 0.0), axis=1,
-                             keepdims=True)
-            acc_im = jnp.sum(jnp.where(mask, pim, 0.0), axis=1,
-                             keepdims=True)
-            y_ref[r, :] = jnp.transpose(acc_re[:TO4])[0, :]
-            y_ref[R + r, :] = jnp.transpose(acc_im[:TO4])[0, :]
-    else:
-        assert G == 1, "residue forms are lane-128 with one output per row"
-        for r in range(R):           # y[R n' + r] = sum_c P[n' + c, R c + r]
-            acc_re = jnp.zeros((TO4,), jnp.float32)
-            acc_im = jnp.zeros((TO4,), jnp.float32)
-            for c in range(C):
-                acc_re = acc_re + pre[base_off + c:base_off + c + TO4,
-                                      R * c + r]
-                acc_im = acc_im + pim[base_off + c:base_off + c + TO4,
-                                      R * c + r]
-            y_ref[r, :] = acc_re
-            y_ref[R + r, :] = acc_im
-
-
-def _kernel(scalars_ref,            # scalar prefetch: [base_acc, inc] uint32
-            z_re_ref, z_im_ref,     # ANY: [rows, lane] raw stream views
-            w4_ref,                 # VMEM [lane, R*C] residue tap matrix
-            y_ref,                  # VMEM out [2R, TO4]
-            *, TO4: int, R: int, C: int, halo_rows: int, lane: int = LANE,
-            wide_cols: int = 0, base_off: int = 0, band_roll: bool = False,
-            stage: str = "full", dot_precision=_DOT_PRECISION, G: int = 1):
-    # VMEM scratch rows must be 8-aligned (Mosaic tiling); the extra rows
-    # read zero padding and feed matmul rows that are never summed
-    m_rows = -(-(TO4 * G + C - 1 + base_off) // 8) * 8
-    i = pl.program_id(0)
-
-    def body(zr_s, zi_s, sem):
-        row0 = pl.multiple_of(i * TO4 * G, TO4 * G)
-        cp1 = pltpu.make_async_copy(z_re_ref.at[pl.ds(row0, m_rows)],
-                                    zr_s, sem.at[0])
-        cp2 = pltpu.make_async_copy(z_im_ref.at[pl.ds(row0, m_rows)],
-                                    zi_s, sem.at[1])
-        cp1.start()
-        cp2.start()
-        cp1.wait()
-        cp2.wait()
-        _compute(i, scalars_ref[0], scalars_ref[1], zr_s[:], zi_s[:],
-                 jnp.float32(0.0), jnp.float32(0.0), w4_ref[:], y_ref,
-                 TO4=TO4, R=R, C=C, halo_rows=halo_rows, lane=lane,
-                 wide_cols=wide_cols, m_rows=m_rows, base_off=base_off,
-                 band_roll=band_roll, stage=stage,
-                 dot_precision=dot_precision, G=G)
-
-    pl.run_scoped(
-        body,
-        pltpu.VMEM((m_rows, lane), jnp.float32),
-        pltpu.VMEM((m_rows, lane), jnp.float32),
-        pltpu.SemaphoreType.DMA((2,)),
-    )
-
-
-def _kernel_planes(scalars_ref,     # scalar prefetch: [base_acc, inc] uint32
-                   dc_ref,          # scalar prefetch: [dc_re, dc_im] f32
-                   t_re_ref, t_im_ref,   # VMEM [halo_rows, lane] tail rows
-                   x_re_ref, x_im_ref,   # ANY [rows_x, lane] raw input views
-                   w4_ref,               # VMEM [lane, R*C or 128]
-                   y_ref,                # VMEM out [2R, TO4]
-                   zr0, zi0, zr1, zi1,   # persistent VMEM window buffers
-                   sem,                  # DMA sems [slot, plane]
-                   *, TO4: int, R: int, C: int, halo_rows: int,
-                   lane: int, wide_cols: int, rows_x: int,
-                   base_off: int = 0, band_roll: bool = False,
-                   stage: str = "full", dot_precision=_DOT_PRECISION,
-                   G: int = 1):
-    """Plane-native, double-buffered variant: the carried raw tail
-    arrives as its OWN small buffer and the block input as the session's
-    re/im f32 planes, so the caller materializes NO concatenated/split
-    copy of the wideband stream (at 20 MSPS those copies were ~3x the
-    kernel's own HBM traffic).  Window DMAs are double-buffered across
-    the sequential grid — step i waits the copy issued at step i-1 and
-    prefetches tile i+1 while computing — hiding the HBM fetch behind
-    the mix/matmul (measured 1.6x at 67M blocks; a run_scoped
-    DMA-then-compute version ran serialized).  Buffers are FOUR separate
-    scratch refs with even/odd pl.when branches: Mosaic has no dynamic
-    leading-dim indexing in-kernel.  Dynamic DMA row starts
-    (i*TO4 - halo_rows) stay on the (8, 128) tile grid because the
-    wrapper rounds halo_rows up to 8 (pl.multiple_of carries the proof);
-    windows past either end of the input are clamped and zero-filled
-    (those rows only feed matmul rows that are never emitted).  Row math
-    uses T4G = TO4*G input rows per tile (G > 1 for the wide-128 form,
-    where one output consumes G = D/128 lane rows)."""
-    T4G = TO4 * G
-    m_rows = -(-(T4G + C - 1 + base_off) // 8) * 8
-    i = pl.program_id(0)
-    n_tiles = rows_x // T4G
-    assert halo_rows % 8 == 0 and T4G % 8 == 0
-    assert T4G >= halo_rows > 0, (T4G, halo_rows)
-    # overrun of the LAST tile's window past the input end (static)
-    over = max(0, (n_tiles - 1) * T4G - halo_rows + m_rows - rows_x)
-    head_keep = min(m_rows - halo_rows, rows_x)
-
-    def copies(j, zr_s, zi_s, slot, phase):
-        """Issue (phase='start') or await (phase='wait') tile j's window
-        DMAs into the given buffer pair.  Waiting reconstructs the same
-        descriptors — the TPU DMA semaphore tracks bytes, so wait() on an
-        identical copy object consumes exactly the started transfer."""
-        def go(cps):
-            for c in cps:
-                (c.start if phase == "start" else c.wait)()
-
-        def head():
-            if phase == "start" and head_keep < m_rows - halo_rows:
-                zr_s[:] = jnp.zeros((m_rows, lane), jnp.float32)
-                zi_s[:] = jnp.zeros((m_rows, lane), jnp.float32)
-            go([pltpu.make_async_copy(t_re_ref,
-                                      zr_s.at[pl.ds(0, halo_rows)],
-                                      sem.at[slot, 0]),
-                pltpu.make_async_copy(t_im_ref,
-                                      zi_s.at[pl.ds(0, halo_rows)],
-                                      sem.at[slot, 1])])
-            go([pltpu.make_async_copy(
-                    x_re_ref.at[pl.ds(0, head_keep)],
-                    zr_s.at[pl.ds(halo_rows, head_keep)], sem.at[slot, 0]),
-                pltpu.make_async_copy(
-                    x_im_ref.at[pl.ds(0, head_keep)],
-                    zi_s.at[pl.ds(halo_rows, head_keep)], sem.at[slot, 1])])
-
-        if n_tiles == 1:
-            head()
-            return
-
-        @pl.when(j == 0)
-        def _():
-            head()
-
-        @pl.when((j > 0) & (j < n_tiles - 1))
-        def _():
-            row0 = pl.multiple_of(j * T4G - halo_rows, 8)
-            go([pltpu.make_async_copy(x_re_ref.at[pl.ds(row0, m_rows)],
-                                      zr_s, sem.at[slot, 0]),
-                pltpu.make_async_copy(x_im_ref.at[pl.ds(row0, m_rows)],
-                                      zi_s, sem.at[slot, 1])])
-
-        @pl.when(j == n_tiles - 1)
-        def _():
-            if phase == "start" and over:
-                zr_s[:] = jnp.zeros((m_rows, lane), jnp.float32)
-                zi_s[:] = jnp.zeros((m_rows, lane), jnp.float32)
-            row0 = pl.multiple_of(j * T4G - halo_rows, 8)
-            keep = m_rows - over
-            go([pltpu.make_async_copy(x_re_ref.at[pl.ds(row0, keep)],
-                                      zr_s.at[pl.ds(0, keep)],
-                                      sem.at[slot, 0]),
-                pltpu.make_async_copy(x_im_ref.at[pl.ds(row0, keep)],
-                                      zi_s.at[pl.ds(0, keep)],
-                                      sem.at[slot, 1])])
-
-    @pl.when(i == 0)
-    def _():
-        copies(i, zr0, zi0, 0, "start")
-
-    nxt = i + 1
-    if n_tiles > 1:
-        @pl.when((nxt < n_tiles) & (nxt % 2 == 0))
-        def _():
-            copies(nxt, zr0, zi0, 0, "start")
-
-        @pl.when((nxt < n_tiles) & (nxt % 2 == 1))
-        def _():
-            copies(nxt, zr1, zi1, 1, "start")
-
-    def finish(zr_s, zi_s, slot):
-        copies(i, zr_s, zi_s, slot, "wait")
-        _compute(i, scalars_ref[0], scalars_ref[1], zr_s[:], zi_s[:],
-                 dc_ref[0], dc_ref[1], w4_ref[:], y_ref,
-                 TO4=TO4, R=R, C=C, halo_rows=halo_rows, lane=lane,
-                 wide_cols=wide_cols, m_rows=m_rows, base_off=base_off,
-                 band_roll=band_roll, stage=stage,
-                 dot_precision=dot_precision, G=G)
-
-    if n_tiles == 1:
-        finish(zr0, zi0, 0)
-    else:
-        @pl.when(i % 2 == 0)
-        def _():
-            finish(zr0, zi0, 0)
-
-        @pl.when(i % 2 == 1)
-        def _():
-            finish(zr1, zi1, 1)
-
-
-def _kernel_bs(scalars_ref, dc_ref,
-               t_re_ref, t_im_ref,       # VMEM [halo_rows, lane] carry tail
-               h_re_ref, h_im_ref,       # blocked [halo_rows, lane] halos
-               x_re_ref, x_im_ref,       # blocked [TO4, lane] main tiles
-               a_re_ref, a_im_ref,       # blocked [ahead, lane] lookahead
-                                         # (None-less: omitted when ahead=0)
-               w4_ref, y_ref, zr_s, zi_s,
-               *, TO4: int, R: int, C: int, halo_rows: int, ahead: int,
-               lane: int, wide_cols: int, n_tiles: int, base_off: int = 0,
-               band_roll: bool = False, stage: str = "full",
-               dot_precision=_DOT_PRECISION, tail_rows: int = 0,
-               G: int = 1):
-    """BlockSpec-pipelined variant (r5): the manual overlapping-window
-    DMAs of _kernel_planes measured 231 GB/s on v5e while Mosaic's OWN
-    block pipeline streams 792 GB/s (97% of HBM) — so the window is
-    split into three NON-overlapping block streams (backward halo, main
-    tile, small lookahead) that Mosaic pipelines automatically, and the
-    [m_rows, lane] compute window is assembled by cheap VMEM copies
-    (~0.3 us/tile).  Requires halo_rows and ahead to divide TO4 (the
-    wrapper rounds both to powers of two <= 128 and falls back to the
-    manual-DMA kernel otherwise).  The i=0 halo and the last tile's
-    lookahead land out of range: their index maps clamp (Mosaic needs
-    in-bounds blocks) and the content is overridden in-kernel — the
-    carry tail for i=0, zeros for the final lookahead (matching
-    _kernel_planes' zero-fill of the past-the-end window rows)."""
-    del n_tiles  # only used by the wrapper's index maps
-    T4G = TO4 * G
-    m_rows = -(-(T4G + C - 1 + base_off) // 8) * 8
-    i = pl.program_id(0)
-    last = pl.num_programs(0) - 1
-
-    pad0 = halo_rows - tail_rows        # BS halo may exceed the carried
-                                        # tail; the surplus rows carry
-                                        # zero taps (w_pad front zeros)
-
-    @pl.when(i == 0)
-    def _():
-        if pad0:
-            zr_s[0:pad0] = jnp.zeros((pad0, lane), jnp.float32)
-            zi_s[0:pad0] = jnp.zeros((pad0, lane), jnp.float32)
-        zr_s[pad0:halo_rows] = t_re_ref[:]
-        zi_s[pad0:halo_rows] = t_im_ref[:]
-
-    @pl.when(i > 0)
-    def _():
-        zr_s[0:halo_rows] = h_re_ref[:]
-        zi_s[0:halo_rows] = h_im_ref[:]
-
-    if ahead > 0:
-        zr_s[halo_rows:halo_rows + T4G] = x_re_ref[:]
-        zi_s[halo_rows:halo_rows + T4G] = x_im_ref[:]
-
-        @pl.when(i < last)
-        def _():
-            zr_s[halo_rows + T4G:m_rows] = a_re_ref[:]
-            zi_s[halo_rows + T4G:m_rows] = a_im_ref[:]
-
-        @pl.when(i == last)
-        def _():
-            zr_s[halo_rows + T4G:m_rows] = jnp.zeros((ahead, lane),
-                                                     jnp.float32)
-            zi_s[halo_rows + T4G:m_rows] = jnp.zeros((ahead, lane),
-                                                     jnp.float32)
-    else:
-        zr_s[halo_rows:m_rows] = x_re_ref[0:m_rows - halo_rows]
-        zi_s[halo_rows:m_rows] = x_im_ref[0:m_rows - halo_rows]
-
-    _compute(i, scalars_ref[0], scalars_ref[1], zr_s[:], zi_s[:],
-             dc_ref[0], dc_ref[1], w4_ref[:], y_ref,
-             TO4=TO4, R=R, C=C, halo_rows=halo_rows, lane=lane,
-             wide_cols=wide_cols, m_rows=m_rows, base_off=base_off,
-             band_roll=band_roll, stage=stage, dot_precision=dot_precision,
-             G=G)
+def block_outputs(decimation: int) -> int:
+    """Outputs per program: a [BM, D] tile of TILE_ELEMS elements."""
+    return max(1, TILE_ELEMS // decimation)
 
 
 class MixDecParams(NamedTuple):
-    w4: jax.Array            # [128, R*C] residue-decomposed taps
+    hf: jax.Array            # [L] flipped composed taps (correlation form)
     phase_inc: jax.Array     # uint32
 
 
 class MixDecCarry(NamedTuple):
-    raw_tail: jax.Array      # [halo_rows*128] raw complex input history
+    raw_tail: jax.Array      # [T] raw complex input history (T = L-1-d)
     phase_base: jax.Array    # uint32 phase at block start
 
 
-class MixDecimate:
-    """Streaming wrapper equivalent to nco.process + decimator.fused_process
-    (the carried history is *raw* input; back-dated oscillator phases come
-    from uint32 wraparound).
+def _angle(acc: jax.Array) -> jax.Array:
+    return acc.astype(jnp.float32) * jnp.float32(K_2PI / _TWO32)
 
-    Supported decimations: D dividing 128 (lane rows hold 128/D outputs,
-    residue-decomposed — the original form) and D a multiple of 128 (the
-    20 MSPS-class plans).  The latter keeps the stream in its free
-    (rows, 128) layout — the wide-128 form, r5: one output consumes
-    G = D/128 consecutive rows, the diagonal-band matmul runs at
-    lane = 128 (identical FLOPs), and output n' is extracted from row
-    G·n' by a static stride-G sublane slice after the band-roll
-    alignment.  The earlier lane = D layout (each row one output) is
-    kept as a fallback for very long composed taps (C > 128 columns)
-    and for wide=False ablations; it pays a hidden host-side XLA retile
-    of ~2x the kernel's own HBM traffic (DESIGN §27)."""
+
+def _fir_kernel(xr_ref, xi_ref, cr_ref, ci_ref, yr_ref, yi_ref, *,
+                bm: int, q_rows: int, row_off: int):
+    """Outputs [i*bm, (i+1)*bm) of the kernel range; output k reads input
+    rows row_off + k + q for q < q_rows."""
+    i = pl.program_id(0)
+    r0 = row_off + i * bm
+    d = xr_ref.shape[1]
+
+    def body(q, acc):
+        ar, ai = acc
+        xr = xr_ref[pl.ds(r0 + q, bm), :]
+        xi = xi_ref[pl.ds(r0 + q, bm), :]
+        cr = cr_ref[pl.ds(q, 1), :]
+        ci = ci_ref[pl.ds(q, 1), :]
+        return ar + xr * cr - xi * ci, ai + xr * ci + xi * cr
+
+    zero = jnp.zeros((bm, d), jnp.float32)
+    ar, ai = jax.lax.fori_loop(0, q_rows, body, (zero, zero))
+    yr_ref[pl.ds(i * bm, bm)] = jnp.sum(ar, axis=1)
+    yi_ref[pl.ds(i * bm, bm)] = jnp.sum(ai, axis=1)
+
+
+class MixDecimate:
+    """Streaming mix + decimate, equivalent to nco.process followed by
+    decimator.fused_process.  The carried history is the *raw* input
+    (MixDecCarry), so a time shard only needs its neighbour's raw tail and
+    its own phase base (shard/timeshard.py)."""
 
     def __init__(self, plan: DecimationPlan, tune_freq: float,
-                 tile_out: int = 512, interpret: bool = False,
-                 wide: bool = True, band_roll: bool = True,
-                 stage: str = "full", dot_precision=_DOT_PRECISION):
-        from cutesdr_tpu.ops import nco as nco_ops
-
-        self.plan = plan
+                 interpret: bool = False):
         D = self.D = plan.decimation
-        h = np.asarray(plan.composed_taps())[::-1]       # flipped (corr form)
-        d = dec_ops.total_offset(plan)
-        L = len(h)
-        self.G = 1
-        if LANE % D == 0:
-            self.lane = LANE
-            self.R = LANE // D
-        elif D % LANE == 0:
-            # wide-128 form (r5): keep the stream in its FREE (rows, 128)
-            # layout — a flat f32 -> (rows, D) reshape physically RETILES
-            # (measured 237 vs 794 GB/s through the same kernel, DESIGN
-            # §27, ~1.6 ms/67M hidden XLA cost at 20 MSPS).  Each output
-            # consumes G = D/128 consecutive lane rows; after the
-            # band-roll alignment output n' sits on row G·n' and is
-            # extracted with a static stride-G sublane slice (_extract).
-            # Same matmul FLOPs as the legacy lane = D layout (rows
-            # double, contraction halves).
-            self.lane = LANE
-            self.R = 1
-            self.G = D // LANE
-            halo_o = int(np.ceil((L - 1 - d) / LANE))
-            too_long = int(np.ceil(
-                (halo_o * LANE - (L - 1 - d) + L) / LANE)) > LANE
-            if too_long or not wide:
-                # composed taps too long for a 128-column band matrix (or
-                # the roll+extract form disabled): legacy lane = D layout
-                # (pays the host-side retile)
-                self.lane = D
-                self.G = 1
-        else:
-            raise ValueError(f"decimation {D} must divide or be a "
-                             f"multiple of {LANE}")
-        lane = self.lane
-        # raw history needed: L-1-d samples, rounded up to whole lane
-        # rows; the DMA halo is that rounded up to a multiple of 8 rows
-        # so the plane-native kernel's dynamic DMA starts
-        # (i*TO4 - halo_rows) stay on the Mosaic (8, 128) tile grid.
-        # The tap matrix is built from the UNALIGNED halo and the kernel
-        # offsets its band slices by base_off rows instead — folding the
-        # alignment into the taps would widen C by up to 7 columns and
-        # triple the matmul for small-C plans (measured: the x32
-        # flagship's mixdec went 0.56 -> 1.0 ms before this split).
-        halo_orig = int(np.ceil((L - 1 - d) / lane))
-        self.halo_orig = halo_orig
-        self.halo_rows = -(-halo_orig // 8) * 8
-        self.base_off = self.halo_rows - halo_orig
-        shift = halo_orig * lane - (L - 1 - d)
-        # padded window taps: y[n] = sum_j w_pad[j] z[n*D + j] over
-        # z = [tail(halo), x]
-        w_len = shift + L
-        w_pad = np.zeros(w_len)
-        w_pad[shift:shift + L] = h
-        # residue decomposition: output n = R*n' + r looks at samples
-        # n*D + j = n'*lane + (r*D + j); with q = (r*D + j) mod lane and
-        # c = (r*D + j) // lane:  W4[q, R*c + r] = w_pad[lane*c + q - r*D]
-        self.C = int(np.ceil((w_len + (self.R - 1) * D) / lane))
-        w4 = np.zeros((lane, self.R * self.C))
-        for r in range(self.R):
-            for c in range(self.C):
-                q0 = r * D - lane * c    # j = lane*c + q - rD >= 0 <=> q >= q0
-                lo = max(0, q0)
-                hi = min(lane, q0 + w_len)
-                if lo < hi:
-                    w4[lo:hi, self.R * c + r] = w_pad[lo - q0:hi - q0]
-        # wide-row fast form (see _kernel's wide_cols branch): tap bands
-        # reversed into a 128-padded column space so ONE stride-roll +
-        # lane reduction does the band-diagonal sum
-        self.wide_cols = 0
-        if wide and self.R == 1 and self.C <= LANE:
-            w4w = np.zeros((lane, LANE))
-            w4w[:, :self.C] = w4[:, ::-1]
-            w4 = w4w
-            self.wide_cols = LANE
-        self.band_roll = False
-        if (band_roll and not self.wide_cols and self.R > 1
-                and self.R * self.C <= LANE):
-            # pad the residue tap matrix to 128 columns so the band sum
-            # can run as masked uniform rolls + lane reductions instead
-            # of 2*R*C unaligned row slices (see _compute's band_roll
-            # branch); pad columns are zero and contribute nothing
-            w4p = np.zeros((lane, LANE))
-            w4p[:, :self.R * self.C] = w4
-            w4 = w4p
-            self.band_roll = True
-        self.w4 = w4
-        if tile_out % self.R:
-            raise ValueError(f"tile_out must be a multiple of {self.R}")
-        self.TO = tile_out                   # output samples per tile
-        self.TO4 = tile_out // self.R        # output columns per residue row
+        if not supported(D):
+            raise ValueError(f"decimation {D} is not a power of two in "
+                             f"2..512")
+        self.plan = plan
+        hf = np.asarray(plan.composed_taps())[::-1]
+        self.L = len(hf)
+        self.T = self.L - 1 - dec_ops.total_offset(plan)
+        self.H = -(-self.T // D)            # history rows
+        self.Q = self.H + 1                 # tap rows (T = L-1-d, d < D)
+        self.bm = block_outputs(D)
         self.interpret = interpret
-        self.stage = stage                  # ablation instrumentation
-        self.dot_precision = dot_precision
-        self._nco = nco_ops
         self.params = MixDecParams(
-            w4=jnp.asarray(w4, jnp.float32),
-            phase_inc=jnp.asarray(
-                nco_ops.phase_increment(tune_freq, plan.in_rate)))
+            hf=jnp.asarray(hf, jnp.float32),
+            phase_inc=jnp.asarray(nco_ops.phase_increment(tune_freq,
+                                                          plan.in_rate)))
 
     @property
     def halo(self) -> int:
-        return self.halo_rows * self.lane
+        return self.T
 
     def init_carry(self) -> MixDecCarry:
-        return MixDecCarry(
-            raw_tail=complex_zeros(self.halo, jnp.complex64),
-            phase_base=jnp.zeros((), jnp.uint32))
+        return MixDecCarry(raw_tail=complex_zeros(self.T, jnp.complex64),
+                           phase_base=jnp.zeros((), jnp.uint32))
 
-    def retune(self, tune_freq: float) -> None:
-        self.params = self.params._replace(
-            phase_inc=jnp.asarray(
-                self._nco.phase_increment(tune_freq, self.plan.in_rate)))
+    def split(self, n: int) -> tuple[int, int]:
+        """(outputs computed by the XLA head, programs of the kernel) for
+        an n-sample block."""
+        n_out = n // self.D
+        progs = max(0, n_out - self.H) // self.bm
+        return n_out - progs * self.bm, progs
 
-    def __call__(self, params: MixDecParams, carry: MixDecCarry,
-                 x: jax.Array) -> tuple[MixDecCarry, jax.Array]:
-        n = x.shape[-1]
-        TO4, R, C, lane, G = self.TO4, self.R, self.C, self.lane, self.G
-        samples_per_tile = TO4 * G * lane
-        if n % samples_per_tile:
-            raise ValueError(f"block {n} not a multiple of {samples_per_tile}")
-        n_tiles = n // samples_per_tile
-        z = jnp.concatenate([carry.raw_tail, x])
-        new_tail = z[z.shape[-1] - self.halo:]
-        # pad right so the last tile's 8-aligned window exists
-        m_rows = TO4 * G + C - 1 + self.base_off
-        pad_rows = (C - 1 + self.base_off) + (-(-m_rows // 8) * 8 - m_rows)
-        zp = jnp.concatenate([z, jnp.zeros(pad_rows * lane, z.dtype)])
-        scalars = jnp.stack([carry.phase_base, params.phase_inc])
-        rows = zp.shape[-1] // lane
-        z_re = zp.real.reshape(rows, lane)
-        z_im = zp.imag.reshape(rows, lane)
-
-        kernel = functools.partial(_kernel, TO4=TO4, R=R, C=C,
-                                   halo_rows=self.halo_rows, lane=lane,
-                                   wide_cols=self.wide_cols,
-                                   base_off=self.base_off,
-                                   band_roll=self.band_roll,
-                                   stage=self.stage,
-                                   dot_precision=self.dot_precision, G=G)
-        y4 = pl.pallas_call(
+    def _fir(self, cr, ci, re, im, n_head, progs):
+        D, H, Q, bm = self.D, self.H, self.Q, self.bm
+        pad = H * D - self.T
+        cr2 = jnp.pad(cr, (pad, Q * D - pad - self.L)).reshape(Q, D)
+        ci2 = jnp.pad(ci, (pad, Q * D - pad - self.L)).reshape(Q, D)
+        rows = re.shape[-1] // D
+        kernel = functools.partial(_fir_kernel, bm=bm, q_rows=Q,
+                                   row_off=n_head - H)
+        out = jax.ShapeDtypeStruct((progs * bm,), jnp.float32)
+        return pl.pallas_call(
             kernel,
-            grid_spec=pltpu.PrefetchScalarGridSpec(
-                num_scalar_prefetch=1,
-                grid=(n_tiles,),
-                in_specs=[
-                    pl.BlockSpec(memory_space=pl.ANY),
-                    pl.BlockSpec(memory_space=pl.ANY),
-                    pl.BlockSpec(memory_space=pltpu.VMEM),
-                ],
-                out_specs=pl.BlockSpec((2 * R, TO4), lambda i, s: (0, i)),
-            ),
-            out_shape=jax.ShapeDtypeStruct((2 * R, n_tiles * TO4),
-                                           jnp.float32),
+            grid=(progs,),
+            out_shape=(out, out),
+            backend="triton",
+            compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS),
             interpret=self.interpret,
-        )(scalars, z_re, z_im, params.w4)
-
-        # interleave residues back to time order: y[R n' + r] = y4[r, n']
-        y_re = y4[:R].T.reshape(-1)
-        y_im = y4[R:].T.reshape(-1)
-        y = jax.lax.complex(y_re, y_im)
-        new_carry = MixDecCarry(
-            raw_tail=new_tail,
-            phase_base=carry.phase_base + jnp.uint32(n) * params.phase_inc)
-        return new_carry, y
+            name="mixdec_fir",
+        )(re.reshape(rows, D), im.reshape(rows, D), cr2, ci2)
 
     def process_planes(self, params: MixDecParams, carry: MixDecCarry,
                        re: jax.Array, im: jax.Array,
-                       dc_offset: jax.Array
-                       ) -> tuple[MixDecCarry, jax.Array]:
-        """Plane-native step: consumes the block as separate f32 re/im
-        planes plus the complex NCO-spur DC offset, fusing the DC cal
-        into the kernel and DMA-ing the carried tail from its own small
-        buffer — zero wideband copies on the XLA side (__call__'s
-        tail-concat + pad + re/im split cost ~3x the kernel's own HBM
-        traffic at 20 MSPS).  Carry layout is identical to __call__."""
+                       dc_offset: jax.Array) -> tuple[MixDecCarry, jax.Array]:
+        """One block given as f32 re/im planes plus the complex NCO-spur DC
+        offset.  Returns the new carry and the n/D decimated outputs."""
         n = re.shape[-1]
-        TO4, R, C, lane, G = self.TO4, self.R, self.C, self.lane, self.G
-        T4G = TO4 * G                        # input rows per tile
-        if T4G < self.halo_rows or self.halo_rows == 0:
-            # tile too short for the one-branch tail DMA (only reachable
-            # with tiny test tiles): take the concat path, DC applied up
-            # front (tail then carries DC-removed samples, same as
-            # __call__ callers)
-            return self(params, carry,
-                        jax.lax.complex(re, im) - dc_offset.astype(
-                            jax.lax.complex(re, im).dtype))
-        samples_per_tile = T4G * lane
-        if n % samples_per_tile:
-            raise ValueError(f"block {n} not a multiple of {samples_per_tile}")
-        n_tiles = n // samples_per_tile
-        rows_x = n // lane
-        scalars = jnp.stack([carry.phase_base, params.phase_inc])
-        dc = jnp.stack([jnp.real(dc_offset).astype(jnp.float32),
-                        jnp.imag(dc_offset).astype(jnp.float32)])
-        t2 = carry.raw_tail.reshape(self.halo_rows, lane) \
-            if self.halo_rows else carry.raw_tail.reshape(0, lane)
-        x_re = re.reshape(rows_x, lane)
-        x_im = im.reshape(rows_x, lane)
+        D, T, L = self.D, self.T, self.L
+        if n % D:
+            raise ValueError(f"block {n} not a multiple of {D}")
+        n_head, progs = self.split(n)
+        inc = params.phase_inc
+        ang = _angle(jax.lax.iota(jnp.uint32, L) * inc)
+        cr = params.hf * jnp.cos(ang)
+        ci = params.hf * jnp.sin(ang)
+        c = jax.lax.complex(cr, ci)
 
-        # BlockSpec-pipelined path geometry: its halo must DIVIDE the
-        # tile's row count T4G so the backward-halo block index
-        # (i*T4G/bs_halo - 1) is integral.  Pick the smallest
-        # multiple-of-8 divisor of T4G >= the carried history; the
-        # surplus rows before the tail are zero-filled at i=0 (they
-        # carry zero taps by the w_pad front-padding guarantee) and real
-        # earlier input rows for i>0.
-        bs_halo = next((k for k in range(8, T4G + 1, 8)
-                        if T4G % k == 0 and k >= self.halo_rows), 0)
-        bs_base = bs_halo - self.halo_orig
-        m_rows = -(-(T4G + C - 1 + bs_base) // 8) * 8 if bs_halo else 0
-        ahead = m_rows - bs_halo - T4G
-        bs_ok = (self.halo_rows > 0 and bs_halo > 0
-                 and (ahead <= 0 or T4G % ahead == 0))
-        if bs_ok:
-            halo = bs_halo
-            static = dict(TO4=TO4, R=R, C=C, halo_rows=halo, ahead=ahead,
-                          lane=lane, wide_cols=self.wide_cols,
-                          n_tiles=n_tiles, base_off=bs_base,
-                          band_roll=self.band_roll, stage=self.stage,
-                          dot_precision=self.dot_precision,
-                          tail_rows=self.halo_rows, G=G)
-            hs = T4G // halo
-            in_specs = [
-                pl.BlockSpec(memory_space=pltpu.VMEM),      # tail re
-                pl.BlockSpec(memory_space=pltpu.VMEM),      # tail im
-                pl.BlockSpec((halo, lane),
-                             lambda i, s1, s2: (jnp.maximum(i * hs - 1, 0),
-                                                0)),
-                pl.BlockSpec((halo, lane),
-                             lambda i, s1, s2: (jnp.maximum(i * hs - 1, 0),
-                                                0)),
-                pl.BlockSpec((T4G, lane), lambda i, s1, s2: (i, 0)),
-                pl.BlockSpec((T4G, lane), lambda i, s1, s2: (i, 0)),
-            ]
-            inputs = [t2.real.astype(jnp.float32),
-                      t2.imag.astype(jnp.float32),
-                      x_re, x_im, x_re, x_im]
-            if ahead > 0:
-                a_s = T4G // ahead
-                a_max = rows_x // ahead - 1
-                in_specs += [
-                    pl.BlockSpec((ahead, lane),
-                                 lambda i, s1, s2: (jnp.minimum(
-                                     (i + 1) * a_s, a_max), 0)),
-                    pl.BlockSpec((ahead, lane),
-                                 lambda i, s1, s2: (jnp.minimum(
-                                     (i + 1) * a_s, a_max), 0)),
-                ]
-                inputs += [x_re, x_im]
-                kernel = functools.partial(_kernel_bs, **static)
-            else:
-                def kernel(s, d, tr, ti, hr, hi, xr, xi, w4r, yr, zr, zi):
-                    _kernel_bs(s, d, tr, ti, hr, hi, xr, xi, None, None,
-                               w4r, yr, zr, zi, **static)
-            in_specs.append(pl.BlockSpec(memory_space=pltpu.VMEM))  # w4
-            inputs.append(params.w4)
-            y4 = pl.pallas_call(
-                kernel,
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=2,
-                    grid=(n_tiles,),
-                    in_specs=in_specs,
-                    out_specs=pl.BlockSpec((2 * R, TO4),
-                                           lambda i, s1, s2: (0, i)),
-                    scratch_shapes=[pltpu.VMEM((m_rows, lane), jnp.float32),
-                                    pltpu.VMEM((m_rows, lane), jnp.float32)],
-                ),
-                out_shape=jax.ShapeDtypeStruct((2 * R, n_tiles * TO4),
-                                               jnp.float32),
-                interpret=self.interpret,
-            )(scalars, dc, *inputs)
-        else:
-            m_rows = -(-(T4G + C - 1 + self.base_off) // 8) * 8
-            kernel = functools.partial(_kernel_planes, TO4=TO4, R=R, C=C,
-                                       halo_rows=self.halo_rows, lane=lane,
-                                       wide_cols=self.wide_cols,
-                                       rows_x=rows_x,
-                                       base_off=self.base_off,
-                                       band_roll=self.band_roll,
-                                       stage=self.stage,
-                                       dot_precision=self.dot_precision,
-                                       G=G)
-            buf = pltpu.VMEM((m_rows, lane), jnp.float32)
-            y4 = pl.pallas_call(
-                kernel,
-                grid_spec=pltpu.PrefetchScalarGridSpec(
-                    num_scalar_prefetch=2,
-                    grid=(n_tiles,),
-                    in_specs=[
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
-                        pl.BlockSpec(memory_space=pl.ANY),
-                        pl.BlockSpec(memory_space=pl.ANY),
-                        pl.BlockSpec(memory_space=pltpu.VMEM),
-                    ],
-                    out_specs=pl.BlockSpec((2 * R, TO4),
-                                           lambda i, s1, s2: (0, i)),
-                    scratch_shapes=[buf, buf, buf, buf,
-                                    pltpu.SemaphoreType.DMA((2, 2))],
-                ),
-                out_shape=jax.ShapeDtypeStruct((2 * R, n_tiles * TO4),
-                                               jnp.float32),
-                interpret=self.interpret,
-            )(scalars, dc, t2.real.astype(jnp.float32),
-              t2.imag.astype(jnp.float32), x_re, x_im, params.w4)
+        # head: outputs whose window reaches into the carried history
+        need = (n_head - 1) * D + L - T
+        z = jnp.concatenate([carry.raw_tail,
+                             jax.lax.complex(re[:need], im[:need])])
+        y = (complex_strided_corr(z, cr, stride=D)
+             + 1j * complex_strided_corr(z, ci, stride=D))
+        if progs:
+            yr, yi = self._fir(cr, ci, re, im, n_head, progs)
+            y = jnp.concatenate([y, jax.lax.complex(yr, yi)])
 
-        y_re = y4[:R].T.reshape(-1)
-        y_im = y4[R:].T.reshape(-1)
-        y = jax.lax.complex(y_re, y_im)
-        # new tail: last halo samples of the raw (pre-DC-cal) input
-        h = self.halo
-        new_tail = jax.lax.complex(re[n - h:], im[n - h:]) if h else \
-            carry.raw_tail
-        new_carry = MixDecCarry(
-            raw_tail=new_tail,
-            phase_base=carry.phase_base + jnp.uint32(n) * params.phase_inc)
-        return new_carry, y
+        k = jax.lax.iota(jnp.uint32, n // D)
+        rot_ang = _angle(carry.phase_base + (k * jnp.uint32(D) - jnp.uint32(T))
+                         * inc)
+        rot = jax.lax.complex(jnp.cos(rot_ang), jnp.sin(rot_ang))
+        y = (y - dc_offset.astype(y.dtype) * jnp.sum(c)) * rot
+        new_tail = (jax.lax.complex(re[n - T:], im[n - T:]) if T
+                    else carry.raw_tail)
+        return MixDecCarry(raw_tail=new_tail,
+                           phase_base=carry.phase_base + jnp.uint32(n) * inc), y
+
+    def __call__(self, params: MixDecParams, carry: MixDecCarry,
+                 x: jax.Array) -> tuple[MixDecCarry, jax.Array]:
+        """Complex-input form (x already DC-corrected)."""
+        return self.process_planes(params, carry, jnp.real(x), jnp.imag(x),
+                                   complex_zeros((), x.dtype))

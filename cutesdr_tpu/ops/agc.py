@@ -36,16 +36,6 @@ from cutesdr_tpu.ops.util import (distance_since_last_true,
                                   sliding_window_max)
 
 
-def _solve(A, B, x0, fast: bool):
-    """x[n] = A[n]·x[n-1] + B[n] — the Pallas scan kernel on the
-    single-stream TPU path (6x the XLA associative_scan, kernels/scan1),
-    the XLA form everywhere else (batched/vmapped callers, CPU, f64
-    golden mode, small blocks)."""
-    if fast:
-        from cutesdr_tpu.kernels import scan1
-        if scan1.use_kernel(jnp.asarray(B)):
-            return scan1.first_order_scan(A, B, x0)
-    return first_order_recurrence(A, B, x0)
 from cutesdr_tpu.types import MAX_AMPLITUDE, complex_zeros
 
 DELAY_TIMECONST = 0.015
@@ -161,8 +151,8 @@ GUESS_ITERS = 24    # cap on guess-verify rounds (lax.while_loop exits as
                     # soon as the pattern validates — realistic window-peak
                     # series converge in <=4 rounds after the warm start;
                     # each extra round is one log-depth associative scan,
-                    # ~0.45 ms at 262k samples, vs ~730 ms for the
-                    # sequential-scan fallback a premature exit would cost)
+                    # far cheaper than the sequential-scan fallback a
+                    # premature exit would cost)
 
 
 def _shift1(x: jax.Array, x0) -> jax.Array:
@@ -172,8 +162,7 @@ def _shift1(x: jax.Array, x0) -> jax.Array:
                           x.shape[:-1] + (1,)), x[..., :-1]], axis=-1)
 
 
-def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak, n_iters,
-                       fast=False):
+def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak, n_iters):
     """Parallel solve of the two-rate averager
         x[n] = (1-a[n])·x[n-1] + a[n]·pk[n],
         a[n] = rise_alpha if pk[n] > x[n-1] else fall_alpha
@@ -192,30 +181,10 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak, n_iters,
     # realistic window-peak series (the naive "input rising" guess needs
     # 6-7)
     ag = jnp.sqrt(rise_alpha * fall_alpha)
-    xg = _solve(jnp.broadcast_to(1.0 - ag, peak.shape), ag * peak, x0, fast)
+    xg = first_order_recurrence(jnp.broadcast_to(1.0 - ag, peak.shape),
+                                ag * peak, x0)
     pattern0 = peak > _shift1(xg, x0)
 
-    if fast:
-        from cutesdr_tpu.kernels import scan1
-        if scan1.use_kernel(peak):
-            # fully-fused round: A/B selection, affine prefix solve,
-            # x[n-1] shift, pattern re-derivation and tie forgiveness all
-            # in ONE kernel call (kernels/scan1.guess_round) — replaces
-            # the ~8 XLA passes per round below with one pallas_call plus
-            # a scalar reduce
-            def body_k(carry):
-                pattern, _, _, i = carry
-                x, pattern_new, nmism = scan1.guess_round(
-                    peak, pattern, x0, rise_alpha, fall_alpha)
-                return pattern_new, x, nmism == 0, i + 1
-
-            def not_converged_k(c):
-                return jnp.logical_not(c[2]) & (c[3] < n_iters)
-
-            carry0 = body_k((jnp.where(pattern0, 1.0, 0.0), xg,
-                             jnp.asarray(False), jnp.asarray(0)))
-            _, x, valid, _ = lax.while_loop(not_converged_k, body_k, carry0)
-            return x, valid
     # loop-invariant products hoisted: each round then costs two selects
     # + the associative solve instead of re-deriving alpha arrays
     rise_b = rise_alpha * peak
@@ -225,8 +194,8 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak, n_iters,
 
     def body(carry):
         pattern, _, _, i = carry
-        x = _solve(jnp.where(pattern, rise_c, fall_c),
-                   jnp.where(pattern, rise_b, fall_b), x0, fast)
+        x = first_order_recurrence(jnp.where(pattern, rise_c, fall_c),
+                                   jnp.where(pattern, rise_b, fall_b), x0)
         prev = _shift1(x, x0)
         pattern_new = peak > prev
         # a pattern mismatch is harmless when the branch choice cannot
@@ -235,8 +204,8 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak, n_iters,
         # branch updates round to the SAME f32 (near-ties — the COMMON
         # case on window-peak plateaus, where the state sits within an
         # ulp of pk; without this the pattern flips forever between
-        # rounding-equivalent branches: 12 rounds observed on TPU vs 3
-        # with the forgiveness).  The downstream effect of a forgiven
+        # rounding-equivalent branches: 12 rounds observed vs 3 with the
+        # forgiveness).  The downstream effect of a forgiven
         # flip is bounded by the same sub-ulp difference through the
         # stable (|A| < 1) composition — inside the documented f32
         # reassociation tolerance of the parallel solve.
@@ -253,8 +222,7 @@ def _two_rate_parallel(rise_alpha, fall_alpha, x0, peak, n_iters,
     return x, valid
 
 
-def _hang_decay_parallel(p: AgcParams, d0, timer0, peak, n_iters,
-                         fast=False):
+def _hang_decay_parallel(p: AgcParams, d0, timer0, peak, n_iters):
     """Parallel solve of the hang-mode decay averager: rise fast while
     pk > d, then HOLD for hang_time samples, then release.  The branch
     pattern reduces to the rising flags alone: the hold window is
@@ -283,7 +251,7 @@ def _hang_decay_parallel(p: AgcParams, d0, timer0, peak, n_iters,
         alpha = jnp.where(pattern, p.decay_rise_alpha,
                           jnp.where(hold, jnp.zeros_like(p.decay_fall_alpha),
                                     p.decay_fall_alpha))
-        d = _solve(1.0 - alpha, alpha * peak, d0, fast)
+        d = first_order_recurrence(1.0 - alpha, alpha * peak, d0)
         pattern_new = peak > _shift1(d, d0)
         valid = jnp.all(pattern_new == pattern, axis=-1)
         return pattern_new, d, dist, valid, i + 1
@@ -301,26 +269,17 @@ def _hang_decay_parallel(p: AgcParams, d0, timer0, peak, n_iters,
 
 
 def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
-                       peak: jax.Array, fast: bool = False):
+                       peak: jax.Array):
     """Parallel (log-depth) averagers + per-solve convergence flags."""
-    # two flat [N] solves, NOT one stacked [2, N] solve: the (2, N)
-    # layout wastes 6/8 sublanes and measures 2x slower on v5e.
-    # (A whole-solve kernel — warm start + every guess-verify round of
-    # both averagers in ONE pallas_call on VMEM-resident state — was
-    # built and measured SLOWER in r5: per-call launch overhead is not
-    # the cost, the VPU round work is, and monolithic [2048, 128] rolls
-    # run ~2-3x slower than the 256-row grid form.  See DESIGN.md §30.)
     a, a_ok = _two_rate_parallel(p.attack_rise_alpha, p.attack_fall_alpha,
-                                 carry.attack_ave, peak, GUESS_ITERS,
-                                 fast=fast)
+                                 carry.attack_ave, peak, GUESS_ITERS)
     if cfg.use_hang:
         d, timer, d_ok = _hang_decay_parallel(p, carry.decay_ave,
                                               carry.hang_timer, peak,
-                                              GUESS_ITERS, fast=fast)
+                                              GUESS_ITERS)
     else:
         d, d_ok = _two_rate_parallel(p.decay_rise_alpha, p.decay_fall_alpha,
-                                     carry.decay_ave, peak, GUESS_ITERS,
-                                     fast=fast)
+                                     carry.decay_ave, peak, GUESS_ITERS)
         timer = carry.hang_timer
     magsel = jnp.maximum(a, d)
     return (a[..., -1], d[..., -1], timer, magsel), a_ok & d_ok
@@ -329,9 +288,8 @@ def _averager_parallel(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
 def _averager(cfg: AgcConfig, p: AgcParams, carry: AgcCarry,
               peak: jax.Array):
     """Averagers: parallel solve, exact sequential fallback on the rare
-    non-converged block (lax.cond — the scan only executes then).
-    Single-stream entry point -> the Pallas scan fast path is legal."""
-    par, valid = _averager_parallel(cfg, p, carry, peak, fast=True)
+    non-converged block (lax.cond — the scan only executes then)."""
+    par, valid = _averager_parallel(cfg, p, carry, peak)
 
     def take_parallel(_):
         return par

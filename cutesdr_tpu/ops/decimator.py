@@ -1,4 +1,4 @@
-"""Cascaded decimate-by-2 chain (half-band FIRs + CIC3), TPU-native.
+"""Cascaded decimate-by-2 chain (half-band FIRs + CIC3), vectorized.
 
 Reference analogue: CDownConvert's chain of stateful per-sample DecBy2 stages
 (dsp/downconvert.cpp:249-258 driver; CHalfBandDecimateBy2 :286-320,
@@ -12,8 +12,8 @@ Two mathematically identical implementations:
 
 * ``fused``: the whole cascade composed into one equivalent FIR at the input
   rate — H_eq(z) = prod_k H_k(z^(2^k)) — run as a single stride-D
-  correlation.  One conv, one halo, and the one XLA op maps the whole
-  chain onto the MXU; also what makes time-sharding trivial (a single
+  correlation.  One conv, one halo, one XLA op for the whole chain; also
+  what makes time-sharding trivial (a single
   (len-1)-sample halo instead of per-stage carries).
 
 Stream algebra (see tests/test_decimator.py for the equivalence check):

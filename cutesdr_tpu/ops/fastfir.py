@@ -4,7 +4,7 @@ Reference analogue: CFastFIR (dsp/fastfir.cpp:268-306): a serial per-sample
 buffer-fill loop that fires a 2048-pt FFT → H multiply → IFFT every 1024
 samples, keeping a 1024-sample overlap.
 
-TPU design: the block is reshaped into *all* of its overlap-save frames at
+Design: the block is reshaped into *all* of its overlap-save frames at
 once — [n_frames, 2048] with hop 1024 — and a single batched FFT·H·IFFT
 processes every frame in parallel.  The only state is the last
 (FIR_SIZE-1)-sample input tail.  Output alignment and values match the

@@ -10,9 +10,8 @@ The recurrence is second-order LINEAR: with state s[n] = [w[n], w[n-1]]
     s[n] = A s[n-1] + [x[n], 0],   A = [[-a1, -a2], [1, 0]]
 
 so the whole block is one log-depth associative scan over (A, b) pairs
-(2x2 matrix composition) — a sequential lax.scan costs ~2.8 us/iteration
-on TPU v5e (16k audio samples = ~46 ms; this dominated the locked-FM
-chain until r4), the parallel form ~2 ns/sample.  The output is then the
+(2x2 matrix composition) instead of a sequential lax.scan, whose
+per-iteration cost dominated the locked-FM chain.  The output is then the
 elementwise combination y = b0*w0 + b1*w1 + b2*w2.
 """
 

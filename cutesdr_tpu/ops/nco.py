@@ -2,7 +2,7 @@
 
 Reference analogue: the per-sample quadrature-oscillator NCO loop in
 CDownConvert (dsp/downconvert.cpp:203-245) — a serial recurrence with a
-self-normalizing gain hack.  The TPU design is closed-form instead: the
+self-normalizing gain hack.  Here it is closed-form instead: the
 phase of sample ``n`` is an *exact* 32-bit fixed-point accumulator value
 
     acc_n = acc_0 + n * phase_inc   (mod 2^32)

@@ -4,7 +4,7 @@ Reference analogue: CNoiseProc (dsp/noiseproc.cpp:121-176): magnitude peak →
 5 ms moving average → when mag·Ratio exceeds the moving sum, zero the next
 ``width`` samples of a Width/2-delayed signal path.
 
-TPU design — everything parallel, no per-sample counter:
+Design — everything parallel, no per-sample counter:
   * moving sum via cumulative-sum difference,
   * the reference's countdown ("blank for Width samples after a trigger")
     equals morphological dilation of the trigger sequence: sample n is

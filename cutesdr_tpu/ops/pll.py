@@ -20,7 +20,7 @@ inactive (the locked condition):
 induction — err[n+1] = wrap-of a quantity that equals the linear e[n+1]
 while |e| <= pi).  A is constant with spectral radius sqrt(1-a) < 1, so the
 block solution is a causal FIR of psi with the truncated impulse response
-A^d — a convolution (fully parallel on the VPU/MXU) instead of a scan.
+A^d — a convolution (fully parallel) instead of a scan.
 Validity (max |e| < pi, max |f| <= clamp) is read off the linear solution
 itself; the caller falls back to the exact sequential scan for blocks where
 the linearization was not exact (acquisition, clamp hits, noise spikes).
@@ -58,14 +58,10 @@ def locked_loop_kernel(alpha: float, beta: float, tol: float = 1e-12,
 def _conv_causal(u: jax.Array, k: jax.Array, n: int) -> jax.Array:
     """First n samples of the full 1-D convolution u*k.
 
-    Always the FFT form.  The direct form is doubly poisoned on XLA:TPU:
-    compile time for mid-size 1-D convolutions is pathological (measured
-    r3: SAM's ~1900-tap locked-loop kernel pushed a single demod compile
-    past 260 s), and f32 convs execute as ONE bf16 MXU pass (-53 dB,
-    measured r4 — fatal for a loop kernel) while requesting
-    precision=HIGHEST re-triggers the compile blowup even at <=256 taps
-    (fm-st-nb sweep config: 10 s -> 152 s).  The FFT form has neither
-    problem and is numerically equivalent at solver tolerances."""
+    Always the FFT form: a direct f32 conv of the ~1900-tap locked-loop
+    kernel must run at precision=HIGHEST to stay exact enough for the
+    loop (a reduced-precision pass measured -53 dB), and the FFT form is
+    numerically equivalent at solver tolerances with O(n log n) cost."""
     d = k.shape[-1]
     L = 1 << int(np.ceil(np.log2(n + d - 1)))
     out = jnp.fft.irfft(jnp.fft.rfft(u, L) * jnp.fft.rfft(k, L), L)

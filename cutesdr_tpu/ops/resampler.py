@@ -5,12 +5,12 @@ Blackman-Harris windowed sinc table at 10,000 points per zero crossing; each
 output sample convolves 28 input taps selected by a floating-point time
 accumulator, which carries fractional phase across blocks.
 
-TPU design: all output timestamps for a block are computed at once
+Design: all output timestamps for a block are computed at once
 (t_k = t0 + k·dt); chunks of 64 consecutive outputs share one lane-aligned
 input window (the only gather) and every windowed-sinc tap weight is
 evaluated analytically in place via a separable closed form of the table
-entry (_sinc_band — TPU gathers cost ~7 ns/element, so the naive per-tap
-window + table gathers were the chain's dominant stage).  The output
+entry (_sinc_band — the naive per-tap window + table gathers were the
+chain's dominant stage).  The output
 count per block is data-dependent in the reference (while-loop); here the
 block yields a *static* ``max_out`` with a validity count, so shapes stay
 static under jit — callers consume ``n_valid`` samples.
@@ -174,10 +174,10 @@ def _rational_process(p: int, q: int, params: ResamplerParams,
     correction is zero — bench, file output, serve before the P loop
     engages), all output phases live on the /q grid: only q distinct
     fractional phases exist, their windowed-sinc taps are STATIC, and
-    the whole block is a stride-p VALID conv with q output channels on
-    the MXU — replacing the banded evaluator's ~M-per-output closed-form
-    weight evaluation (256 evals/output on the flagship, ~0.6 ms/block)
-    with ~periods MACs/output (~0.03 ms).
+    the whole block is a stride-p VALID conv with q output channels —
+    replacing the banded evaluator's ~M-per-output closed-form weight
+    evaluation (256 evals/output on the flagship) with ~periods
+    MACs/output.
 
     Integer bookkeeping: position numerator N(o) = num0 + p*o with
     num0 = round(t0*q) (t0 always sits on the /q grid in steady state;
@@ -212,8 +212,7 @@ def _rational_process(p: int, q: int, params: ResamplerParams,
             jnp.zeros((pad_right,), vec.dtype)])
         lhs = lax.dynamic_slice(zfull, (start,), (Lc,))
         # NCW output + explicit transpose to time order ([q, K] -> [K, q]
-        # -> flat): the NWC layout that would skip the transpose measured
-        # no better on v5e (0.30 vs 0.25 ms median, overlapping spreads)
+        # -> flat)
         out = lax.conv_general_dilated(
             lhs[None, None, :], rhs[:, None, :],
             window_strides=(p,), padding="VALID",
@@ -259,9 +258,8 @@ def _sinc_value(v: jax.Array, periods: int, interp: bool) -> jax.Array:
     position — strictly better than the table's linear interpolation.
 
     Why analytic: a table lookup is a 5-6M-element gather per block on the
-    flagship config, ~40 ms on TPU v5e; the closed form is VPU arithmetic,
-    ~0.05 ms (measured r4).  Zero outside (0, periods] — callers rely on
-    this for the banded form."""
+    flagship config; the closed form is elementwise arithmetic.  Zero
+    outside (0, periods] — callers rely on this for the banded form."""
     rdtype = v.dtype
     if not interp:
         v = jnp.floor(v * SINC_PERIOD_PTS) / SINC_PERIOD_PTS
@@ -453,10 +451,9 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
     # (_sinc_value/_sinc_band).  Chunk bases are rounded DOWN to a
     # 128-lane row boundary so the window fetch is a gather of whole
     # rows of the lane-major reshape — ~n_chunks·M/128 contiguous
-    # 128-wide slices instead of n_chunks·M single elements, which on
-    # TPU is ~19x faster (element gathers cost ~5 ns/element regardless
-    # of locality; the misalignment is absorbed by widening the
-    # coefficient band by one row, cheap on the VPU).  M is static,
+    # 128-wide slices instead of n_chunks·M single elements (the
+    # misalignment is absorbed by widening the coefficient band by one
+    # row).  M is static,
     # sized for the nominal ratio implied by (n, max_out) plus the rate
     # lock's ±0.2% swing plus the row-alignment slack.
     C = _CHUNK
@@ -523,8 +520,9 @@ def _banded_process(params: ResamplerParams, carry: ResamplerCarry,
              - idx_local[..., None]).astype(rdtype) - tf[..., None]
         sv = _sinc_value(v, periods, True)
 
-    # VPU multiply+reduce (not an MXU dot: TPU f32 dots default to bf16
-    # passes, which would cap the resampler's ~100 dB SINAD at ~40 dB)
+    # elementwise multiply+reduce, not a dot: an f32 dot at default
+    # precision may use reduced-precision multiplies, which would cap the
+    # resampler's ~100 dB SINAD at ~40 dB
     if jnp.iscomplexobj(x):
         y = (jnp.sum(sv * zc.real[:, None, :], axis=-1)
              + 1j * jnp.sum(sv * zc.imag[:, None, :], axis=-1)).astype(x.dtype)

@@ -45,7 +45,7 @@ def init(sample_rate: float, rdtype=jnp.float32) -> tuple[SMeterParams, SMeterCa
 
 
 def process(params: SMeterParams, carry: SMeterCarry,
-            x: jax.Array, fast: bool = False) -> tuple[SMeterCarry, jax.Array]:
+            x: jax.Array) -> tuple[SMeterCarry, jax.Array]:
     """Returns (carry', per-sample dB magnitudes); read meter via getters.
 
     The per-sample recurrence
@@ -53,31 +53,12 @@ def process(params: SMeterParams, carry: SMeterCarry,
         d[n] = max((1-ad)·d[n-1] + ad·m[n], a[n])   # attack dominates
     is solved in parallel: the attack average is a plain linear recurrence
     and the snapped decay is a max-affine recurrence — both log-depth
-    associative scans (ops/util.py).  A naive lax.scan costs ~2.8 us per
-    sample on TPU v5e (the serialized-VPU floor) and was the single
-    largest consumer of the whole receiver step; the parallel form is
-    ~2000x faster (measured r4).
-
-    ``fast=True`` (single-stream TPU callers only — NOT legal under vmap,
-    same contract as agc.process) additionally fuses both recurrences
-    into one Pallas call that emits just the two final values
-    (kernels/scan1.smeter_last): the meter reads scalars, so the full
-    averager series is never materialized (~1.0 ms -> ~0.1 ms at 262k)."""
+    associative scans (ops/util.py), not a sequential per-sample scan."""
     rdtype = jnp.real(x).dtype
     pwr = (x.real * x.real + x.imag * x.imag) / MAX_PWR
     # floor at -160 dBFS: the reference's 1e-50 guard would underflow to 0
     # in float32 and poison the averagers with -inf
     mag = (10.0 * jnp.log10(jnp.maximum(pwr, 1e-16))).astype(rdtype)
-
-    if fast:
-        from cutesdr_tpu.kernels import scan1
-        if scan1.use_kernel(mag) and scan1.smeter_supported(mag.shape[-1]):
-            a, d = scan1.smeter_last(mag, params.attack_alpha,
-                                     params.decay_alpha,
-                                     carry.attack_ave, carry.decay_ave)
-            peak = jnp.maximum(carry.peak_mag, jnp.max(mag))
-            return SMeterCarry(attack_ave=a, decay_ave=d, average_mag=d,
-                               peak_mag=peak), mag
 
     a_series = ema(params.attack_alpha, mag, carry.attack_ave)
     d_series = max_affine_recurrence(

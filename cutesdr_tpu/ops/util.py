@@ -14,27 +14,24 @@ def strided_corr(z: jax.Array, taps: jax.Array, stride: int = 1,
     y[..., n] = sum_j taps[j] * z[..., n*stride + offset + j]
 
     for every n such that the window fits (VALID).  Real dtypes only; complex
-    inputs are handled by callers via stacked re/im (TPU convs are real).
+    inputs are handled by callers via stacked re/im (the convs are real).
     Lowers to ``lax.conv_general_dilated`` (which is itself cross-correlation,
-    no kernel flip) and XLA:TPU maps it onto the MXU.  Callers wanting true
-    convolution pass ``taps[::-1]``.
+    no kernel flip).  Callers wanting true convolution pass ``taps[::-1]``.
 
     ``compute_dtype=jnp.bfloat16`` quantizes inputs and taps to bf16 while
-    accumulating in float32 (the MXU's native mode) — halves the HBM traffic
-    of the wideband front end at a measured ~50 dB quantization-SNR floor
-    (see tests/test_numerics_parity.py::test_bf16_front_end_snr).
+    accumulating in float32 — halves the memory traffic of the wideband
+    front end at a measured ~50 dB quantization-SNR floor (see
+    tests/test_numerics_parity.py::test_bf16_front_end_snr).
 
-    The default (f32) path pins ``precision=HIGHEST``: XLA:TPU otherwise
-    runs f32 convs as ONE bf16 MXU pass, measured 2.2e-3 relative (-53 dB)
-    on the x256 decimation chain against an f64 oracle — invisible to the
-    CPU test suite, caught by the on-chip mixdec cross-check.  bf16 is
+    The default (f32) path pins ``precision=HIGHEST``: without it an f32
+    conv may run with reduced-precision multiplies (TF32 on the GPU, one
+    bf16 pass on other accelerators) — ~-53 dB on the x256 decimation
+    chain against an f64 oracle, invisible to the CPU test suite.  bf16 is
     available only through the explicit ``compute_dtype`` opt-in.
 
     Small stride-1 kernels (<= 128 taps: the audio-rate FIRs) use an
-    unrolled shift-multiply-add instead — exact f32 on the VPU with no
-    MXU pass at all, because requesting HIGHEST on small direct convs
-    re-triggers the XLA:TPU compile-time blowup (fm-st-nb sweep config:
-    10 s -> 156 s with the conv, <1 s with the shift-add).
+    unrolled shift-multiply-add instead — exact f32 elementwise arithmetic
+    that XLA fuses into one pass, with no convolution at all.
     """
     L = taps.shape[0]
     if offset:
@@ -74,7 +71,7 @@ def complex_strided_corr(z: jax.Array, taps: jax.Array, stride: int = 1,
 def first_order_recurrence(alpha, u: jax.Array, s0) -> jax.Array:
     """Parallel (log-depth) solve of s[n] = alpha·s[n-1] + u[n], s[-1] = s0.
 
-    Linear recurrences don't need a serial scan on TPU: with pair elements
+    Linear recurrences don't need a serial scan: with pair elements
     (a, b) and composition (a1,b1)∘(a2,b2) = (a1·a2, a2·b1 + b2), a prefix
     associative_scan yields s[n] = A[n]·s0 + B[n].  ``alpha`` may be a scalar
     or per-sample array.
@@ -134,8 +131,7 @@ def sliding_window_max(x: jax.Array, window: int, init_tail: jax.Array):
     Van Herk–Gil-Werman: two block-wise cummax passes give every sliding
     maximum in O(1) ops/sample regardless of window size (the reference
     rescans O(W) on peak expiry, dsp/agc.cpp:209-231; a naive reduce_window
-    is O(W)/sample and makes XLA:TPU compile time explode for ms-scale
-    windows)."""
+    is O(W)/sample)."""
     w = int(window)
     z = jnp.concatenate([init_tail, x], axis=-1)      # length n + w - 1
     new_tail = z[..., z.shape[-1] - (w - 1):] if w > 1 else z[..., :0]

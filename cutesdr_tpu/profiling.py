@@ -1,7 +1,7 @@
 """Performance instrumentation.
 
 Reference analogue: interface/perform.{h,cpp} — an RDTSC micro-profiler
-bracketing hot loops with min/max/avg per-sample stats.  TPU equivalent:
+bracketing hot loops with min/max/avg per-sample stats.  Equivalent here:
 wall-clock stage timing around jitted calls (device-synchronized) plus a
 jax.profiler trace hook for per-kernel analysis in TensorBoard/xprof.
 """

@@ -5,7 +5,7 @@ The reference is strictly single-core (SURVEY.md section 2.4); these
 components are new capability, designed around the finite memory of every
 operator in the chain: sharding the time axis is *exact* because each stage
 only needs a bounded history (FIR tails / overlap-save frames), which
-neighbor devices exchange over ICI via ppermute.
+neighbor devices exchange via ppermute.
 """
 
 from cutesdr_tpu.shard.mesh import make_mesh

@@ -9,8 +9,9 @@ running the time-sharded receiver across hosts of a pod slice:
     host contributes the time-slices owned by its local devices, so a
     20 MSPS stream can be split at the ingest level (BASELINE config 5)
     with no host ever holding the full-rate stream;
-  * collectives inside the step ride ICI within a slice and DCN across
-    hosts automatically (mesh order puts 't' innermost over local devices).
+  * collectives inside the step ride the intra-host interconnect between
+    local devices and the network across hosts automatically (mesh order
+    puts 't' innermost over local devices).
 
 Testable on one host via multiple processes with
 jax.distributed + XLA_FLAGS=--xla_force_host_platform_device_count (see

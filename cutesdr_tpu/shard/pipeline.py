@@ -8,15 +8,15 @@ capability exists and is testable: useful when the wideband front end
 while the audio-rate tail (S-meter → AGC → demod → resample) rides along,
 or when several sessions share chips.
 
-Design (TPU-idiomatic, single controller):
+Design (single controller):
 
   * stage A = front end, compiled and resident on device A;
   * stage B = back end, compiled and resident on device B;
   * each ``process`` call dispatches A(x_t) on device A and
     B(baseband_{t-1}) on device B — XLA's async dispatch runs them
     CONCURRENTLY, giving true 2-stage pipelining with one block of
-    latency; the staged baseband moves A→B via ``jax.device_put`` (ICI
-    when both are real chips), which is itself async;
+    latency; the staged baseband moves A→B via ``jax.device_put``
+    (device to device), which is itself async;
   * outputs equal the single-chip receiver exactly, delayed by one block
     (tests/test_pipeline_pp.py).
 
@@ -111,7 +111,7 @@ class PipelinedReceiver:
             self.back_state, out = back(self.back_params, self.back_state,
                                         self._staged)
         self.front_state, filt = front(self.params, self.front_state, iq)
-        # stream handoff A -> B (async; ICI between real chips)
+        # stream handoff A -> B (async, device to device)
         self._staged = jax.device_put(filt, self.device_back)
         return out
 

@@ -2,7 +2,7 @@
 
 These are deliberately naive float64 loops written from the documented
 semantics (SURVEY.md section 2.1 / reference file:line cites in each op's
-docstring) and used only to verify the vectorized TPU ops.  They mirror the
+docstring) and used only to verify the vectorized ops.  They mirror the
 *math*, including block/boundary behavior, of the reference C++ chain.
 """
 

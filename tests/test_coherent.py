@@ -97,7 +97,7 @@ def test_diversity_receiver_end_to_end():
 
 
 def test_diversity_receiver_host_planes_matches_complex_path():
-    """process_host (f32 re/im planes both ways — the TPU production
+    """process_host (f32 re/im planes both ways — the production
     contract) produces the same audio and gain as process()."""
     from cutesdr_tpu.pipeline.receiver import ReceiverConfig, join_complex_pair
     from cutesdr_tpu.shard.coherent import DiversityReceiver

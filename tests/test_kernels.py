@@ -1,12 +1,11 @@
 """Pallas kernel equivalence tests (interpret mode on the CPU backend)."""
 
-import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from cutesdr_tpu.design.decimation_plan import plan_decimation
-from cutesdr_tpu.kernels.mixdec import MixDecimate
+from cutesdr_tpu.kernels.mixdec import MixDecimate, supported
 from cutesdr_tpu.ops import decimator, nco
 from cutesdr_tpu.testbench.generators import tone
 
@@ -25,23 +24,29 @@ def _reference(plan, tune, x_blocks):
     return np.concatenate(out)
 
 
+def _kernel_run(md, x_blocks):
+    carry = md.init_carry()
+    got = []
+    for b in x_blocks:
+        carry, y = md(md.params, carry, jnp.asarray(b, C64))
+        got.append(np.asarray(y))
+    return np.concatenate(got)
+
+
+def _noise(rng, n, scale):
+    return ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+            * scale).astype(np.complex64)
+
+
 @pytest.mark.parametrize("tune", [0.0, 123_456.7])
 def test_mixdec_matches_xla_composition(rng, tune):
     plan = plan_decimation(2_000_000.0, 20_000.0)   # decimation 32
-    md = MixDecimate(plan, tune, tile_out=256, interpret=True)
-    n_blk = md.TO * md.D          # one tile per block
-    x = (rng.standard_normal(3 * n_blk)
-         + 1j * rng.standard_normal(3 * n_blk)).astype(np.complex64) * 1000
+    md = MixDecimate(plan, tune, interpret=True)
+    n_blk = 256 * md.D
+    x = _noise(rng, 3 * n_blk, 1000)
     blocks = np.split(x, 3)
-
     want = _reference(plan, tune, blocks)
-
-    carry = md.init_carry()
-    got = []
-    for b in blocks:
-        carry, y = md(md.params, carry, jnp.asarray(b, C64))
-        got.append(np.asarray(y))
-    got = np.concatenate(got)
+    got = _kernel_run(md, blocks)
     assert got.shape == want.shape
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=2e-4 * scale)
@@ -49,13 +54,12 @@ def test_mixdec_matches_xla_composition(rng, tune):
 
 def test_mixdec_multi_tile_block(rng):
     plan = plan_decimation(500_000.0, 20_000.0)     # decimation 8
-    md = MixDecimate(plan, 10_000.0, tile_out=128, interpret=True)
-    n_blk = 4 * md.TO * md.D                         # 4 tiles per block
-    x = (rng.standard_normal(n_blk)
-         + 1j * rng.standard_normal(n_blk)).astype(np.complex64) * 100
+    md = MixDecimate(plan, 10_000.0, interpret=True)
+    n_blk = (md.H + 4 * md.bm) * md.D               # 4 kernel programs
+    assert md.split(n_blk)[1] == 4
+    x = _noise(rng, n_blk, 100)
     want = _reference(plan, 10_000.0, [x])
-    carry, y = md(md.params, md.init_carry(), jnp.asarray(x, C64))
-    got = np.asarray(y)
+    got = _kernel_run(md, [x])
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=2e-4 * scale)
 
@@ -63,10 +67,10 @@ def test_mixdec_multi_tile_block(rng):
 def test_mixdec_tone_lands_at_dc(rng):
     plan = plan_decimation(500_000.0, 20_000.0)
     f0 = 42_000.0
-    md = MixDecimate(plan, f0, tile_out=128, interpret=True)
-    x = tone(2 * md.TO * md.D, f0, plan.in_rate, -20.0).astype(np.complex64)
-    carry, y = md(md.params, md.init_carry(), jnp.asarray(x))
-    y = np.asarray(y)[md.halo // md.D:]   # skip startup transient
+    md = MixDecimate(plan, f0, interpret=True)
+    x = tone(2 * md.bm * md.D + md.T, f0, plan.in_rate, -20.0)
+    x = x[:len(x) // md.D * md.D].astype(np.complex64)
+    y = _kernel_run(md, [x])[md.halo // md.D + 1:]   # skip startup transient
     # tone at the tune frequency -> DC after mix+decimate: constant phasor
     assert np.std(np.abs(y)) < 1e-3 * np.mean(np.abs(y))
     ang = np.unwrap(np.angle(y))
@@ -92,164 +96,16 @@ def test_receiver_with_pallas_decimator():
     np.testing.assert_allclose(a_p, a_f, atol=3e-4 * scale)
 
 
-def test_fastfir4_matches_xla(rng):
-    """Four-step Pallas overlap-save == the batched jnp.fft implementation."""
-    from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
-    from cutesdr_tpu.ops import fastfir
-
-    fs = 62500.0
-    k = FastFirFourStep(100.0, 2800.0, 0.0, fs, interpret=True)
-    fp, fc = fastfir.init(100.0, 2800.0, 0.0, fs, jnp.complex64)
-    n = 4 * 1024
-    x = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 100
-         ).astype(np.complex64)
-    kc = k.init_carry()
-    got, want = [], []
-    for b in np.split(x, 2):
-        kc, y1 = k(k.params, kc, jnp.asarray(b))
-        fc, y2 = fastfir.process(fp, fc, jnp.asarray(b))
-        got.append(np.asarray(y1))
-        want.append(np.asarray(y2))
-    got, want = np.concatenate(got), np.concatenate(want)
-    scale = np.abs(want).max()
-    np.testing.assert_allclose(got, want, atol=5e-5 * scale)
-
-
-def test_fastfir4_fps_batching_exact(rng):
-    """The frames-per-step batching knob (one union-window DMA + an
-    unrolled in-kernel frame loop) is bit-equivalent to the single-frame
-    grid — on-chip it measured no faster (see filter_frames), but the
-    knob stays and must stay CORRECT."""
-    from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
-
-    fs = 62500.0
-    k = FastFirFourStep(100.0, 2800.0, 0.0, fs, interpret=True)
-    n = 8 * 1024
-    x = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 100
-         ).astype(np.complex64)
-    z = jnp.concatenate([jnp.zeros(k.ntaps - 1, jnp.complex64),
-                         jnp.asarray(x)])
-    y1 = np.asarray(k.filter_frames(k.params, z, fps=1))
-    for fps in (2, 4, 8):
-        yf = np.asarray(k.filter_frames(k.params, z, fps=fps))
-        np.testing.assert_array_equal(y1, yf)
-
-
-def test_fastfir4_retune(rng):
-    from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
-    from cutesdr_tpu.testbench.generators import tone as _tone
-
-    fs = 62500.0
-    k = FastFirFourStep(100.0, 2800.0, 0.0, fs, interpret=True)
-    x = _tone(4096, 5000.0, fs, -20.0).astype(np.complex64)  # stopband tone
-    _, y = k(k.params, k.init_carry(), jnp.asarray(x))
-    p_stop = float(jnp.mean(jnp.abs(y[2048:]) ** 2))
-    k.retune(100.0, 6000.0, 0.0)                              # now passband
-    _, y2 = k(k.params, k.init_carry(), jnp.asarray(x))
-    p_pass = float(jnp.mean(jnp.abs(y2[2048:]) ** 2))
-    assert p_pass > 1e6 * p_stop
-
-
-def test_receiver_with_pallas_fastfir():
-    """fastfir_impl='pallas' (four-step kernel) matches the XLA receiver."""
-    from cutesdr_tpu.pipeline.receiver import Receiver, ReceiverConfig
-
-    kw = dict(input_rate=500_000.0, mode="usb", tune_freq=20_000.0,
-              audio_rate=None, agc_on=False)
-    rx_p = Receiver(ReceiverConfig(fastfir_impl="pallas",
-                                   pallas_interpret=True, **kw))
-    rx_x = Receiver(ReceiverConfig(**kw))
-    x = tone(rx_x.cfg.block_size * 2, 21_000.0, 500_000.0, -20.0)
-    a_p, a_x = [], []
-    for b in np.split(x, 2):
-        a_p.append(np.asarray(rx_p.process(jnp.asarray(b, C64)).audio))
-        a_x.append(np.asarray(rx_x.process(jnp.asarray(b, C64)).audio))
-    a_p, a_x = np.concatenate(a_p), np.concatenate(a_x)
-    scale = np.abs(a_x).max()
-    np.testing.assert_allclose(a_p, a_x, atol=3e-4 * scale)
-    # live filter retune works through the kernel params
-    rx_p.set_filter(200.0, 3000.0)
-    rx_p.process(jnp.asarray(x[:rx_p.cfg.block_size], C64))
-
-
-def test_receiver_all_pallas_front_end():
-    """Both Pallas kernels together (mix+decimate and four-step filter)."""
-    from cutesdr_tpu.pipeline.receiver import Receiver, ReceiverConfig
-
-    kw = dict(input_rate=500_000.0, mode="usb", tune_freq=20_000.0,
-              audio_rate=None, agc_on=False)
-    rx_p = Receiver(ReceiverConfig(decimator_impl="pallas",
-                                   fastfir_impl="pallas",
-                                   pallas_interpret=True, **kw))
-    rx_x = Receiver(ReceiverConfig(**kw))
-    x = tone(rx_x.cfg.block_size * 2, 21_000.0, 500_000.0, -20.0)
-    a_p = np.concatenate([np.asarray(rx_p.process(jnp.asarray(b, C64)).audio)
-                          for b in np.split(x, 2)])
-    a_x = np.concatenate([np.asarray(rx_x.process(jnp.asarray(b, C64)).audio)
-                          for b in np.split(x, 2)])
-    scale = np.abs(a_x).max()
-    np.testing.assert_allclose(a_p, a_x, atol=5e-4 * scale)
-
-
-@pytest.mark.parametrize("nfft,ntaps", [(4096, 3073), (4096, 2049),
-                                        (2048, 1025)])
-def test_fastfir4_generalized_sizes(rng, nfft, ntaps):
-    """The four-step kernel generalized beyond 2048/1025 (VERDICT r2 item
-    4): any 128-lane frame with a 1024-multiple hop matches ops.fastfir."""
-    from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
-    from cutesdr_tpu.ops import fastfir
-
-    fs = 62500.0
-    k = FastFirFourStep(100.0, 2800.0, 0.0, fs, nfft=nfft, ntaps=ntaps,
-                        interpret=True)
-    fp, fc = fastfir.init(100.0, 2800.0, 0.0, fs, jnp.complex64,
-                          nfft=nfft, ntaps=ntaps)
-    valid = nfft - ntaps + 1
-    n = 2 * valid
-    x = ((rng.standard_normal(2 * n) + 1j * rng.standard_normal(2 * n)) * 100
-         ).astype(np.complex64)
-    kc = k.init_carry()
-    got, want = [], []
-    for b in np.split(x, 2):
-        kc, y1 = k(k.params, kc, jnp.asarray(b))
-        fc, y2 = fastfir.process(fp, fc, jnp.asarray(b))
-        got.append(np.asarray(y1))
-        want.append(np.asarray(y2))
-    got, want = np.concatenate(got), np.concatenate(want)
-    scale = np.abs(want).max()
-    np.testing.assert_allclose(got, want, atol=5e-5 * scale)
-
-
-def test_fastfir4_rejects_unsupported_sizes():
-    from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep
-    with pytest.raises(ValueError):
-        FastFirFourStep(100.0, 2800.0, 0.0, 62500.0, nfft=2048, ntaps=1921,
-                        interpret=True)
-
-
-def test_mosaic_cachefix_installed():
-    """kernels import installs the Mosaic location-stripping wrapper so
-    Pallas programs hit the persistent compile cache across processes and
-    scripts (kernels/_cachefix.py; the payload used to embed the trace
-    callsite, changing the cache key with any upstream code edit)."""
-    import jax._src.tpu_custom_call as tcc
-
-    import cutesdr_tpu.kernels  # noqa: F401  (import applies the fix)
-    from cutesdr_tpu.kernels import _cachefix
-    assert _cachefix._applied
-    assert tcc._lower_mosaic_module_to_asm.__name__ == "stable_lower"
-
-
 def test_mixdec_small_block_low_latency_config():
-    """The serve low-latency path (small fastfir → block 1024) must work
-    with the pallas mixdec: the output tile adapts to the block instead of
-    assuming 512 (regression: serve on TPU crashed with 'block 1024 not a
-    multiple of 2048')."""
+    """The serve low-latency path (small fastfir -> short block) works
+    with the kernel: a block shorter than one program's outputs is all
+    XLA head, longer ones split between head and kernel."""
+    from dataclasses import replace
+
     from cutesdr_tpu.design.latency import choose_fastfir_sizes
     from cutesdr_tpu.pipeline.receiver import (Receiver, ReceiverConfig,
-                                               _mixdec_tile)
+                                               _make_mixdec)
 
-    from dataclasses import replace
     base = choose_fastfir_sizes(
         ReceiverConfig(input_rate=250_000.0, mode="usb",
                        tune_freq=60_000.0, audio_rate=48000.0), 0.010)
@@ -258,9 +114,10 @@ def test_mixdec_small_block_low_latency_config():
               fastfir_ntaps=base.fastfir_ntaps)
     cfg_p = ReceiverConfig(decimator_impl="pallas", pallas_interpret=True,
                            **kw)
-    assert _mixdec_tile(cfg_p) > 0
-    cfg_x = ReceiverConfig(decimator_impl="fused", **kw)
-    assert cfg_p.block_size == cfg_x.block_size
+    cfg_x = replace(cfg_p, decimator_impl="fused", pallas_interpret=False)
+    head, progs = _make_mixdec(cfg_p).split(cfg_p.block_size)
+    assert head + progs * _make_mixdec(cfg_p).bm == \
+        cfg_p.block_size // cfg_p.plan.decimation
     x = tone(cfg_p.block_size * 2, 61_000.0, 250_000.0, -20.0)
     rx_p, rx_x = Receiver(cfg_p), Receiver(cfg_x)
     a_p = np.concatenate([np.asarray(rx_p.process(jnp.asarray(b, C64)).audio)
@@ -271,168 +128,86 @@ def test_mixdec_small_block_low_latency_config():
 
 
 def test_mixdec_wide_decimation_matches_xla(rng):
-    """Decimation >= 128 (the 20 MSPS flagship's x256 plan) takes the
-    wide-row mixdec form: rows of `lane = D` samples, one output per row
-    (R=1), same diagonal-band matmul.  Must match the XLA-composed
-    NCO + fused decimator."""
-    from cutesdr_tpu.design.decimation_plan import plan_decimation
-    from cutesdr_tpu.ops import decimator, nco
-
+    """Decimation 256 (the 20 MSPS plan): 8.5k composed taps over 35 tap
+    rows of 256 lanes must match the XLA-composed NCO + fused decimator."""
     plan = plan_decimation(16_000_000.0, 20_000.0)
     assert plan.decimation == 256, plan.decimation
     tune = 1_234_567.0
-    md = MixDecimate(plan, tune, tile_out=8, interpret=True)
-    n = 8 * 256 * 2                      # 2 tiles per block
-    x = ((rng.standard_normal(2 * n) + 1j * rng.standard_normal(2 * n))
-         * 100).astype(np.complex64)
-
-    np_, nc = nco.init(tune, plan.in_rate)
-    dp, dc = decimator.fused_init(plan, jnp.complex64, jnp.float32)
-    kc = md.init_carry()
-    got, want = [], []
-    for b in np.split(x, 2):
-        kc, y1 = md(md.params, kc, jnp.asarray(b))
-        nc, mixed = nco.process(np_, nc, jnp.asarray(b))
-        dc, y2 = decimator.fused_process(plan, dp, dc, mixed)
-        got.append(np.asarray(y1))
-        want.append(np.asarray(y2))
-    got, want = np.concatenate(got), np.concatenate(want)
+    md = MixDecimate(plan, tune, interpret=True)
+    n = (md.H + 2 * md.bm + 5) * md.D
+    blocks = np.split(_noise(rng, 2 * n, 100), 2)
+    want = _reference(plan, tune, blocks)
+    got = _kernel_run(md, blocks)
     assert got.shape == want.shape
     scale = np.abs(want).max()
     np.testing.assert_allclose(got, want, atol=5e-5 * scale)
 
 
-def test_scan1_first_order_matches_xla():
-    """kernels/scan1 (Pallas first-order affine scan) equals the XLA
-    associative_scan across lengths incl. non-multiples of the row block;
-    the sublane/lane Hillis-Steele composition order and SMEM grid carry
-    are the things being checked."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cutesdr_tpu.kernels.scan1 import first_order_scan
-    from cutesdr_tpu.ops.util import first_order_recurrence
-
-    rng = np.random.default_rng(0)
-    for n in (65536, 98304, 262144, 262144 - 1000):
-        a = jnp.asarray((0.99 + 0.005 * rng.random(n)).astype(np.float32))
-        b = jnp.asarray((rng.standard_normal(n) * 0.01).astype(np.float32))
-        want = first_order_recurrence(a, b, jnp.float32(-3.0))
-        got = first_order_scan(a, b, -3.0, interpret=True)
-        d = float(jnp.max(jnp.abs(got - want)))
-        assert d < 1e-5, (n, d)
+# input rates whose usb plan decimates by 2 ... 512
+RATE_FOR_D = {2: 125_000.0, 4: 250_000.0, 8: 500_000.0, 16: 1e6, 32: 2e6,
+              64: 4e6, 128: 8e6, 256: 16e6, 512: 32e6}
 
 
-def test_resamp1_matches_banded_resampler():
-    """kernels/resamp1 (fused span-DMA resampler — a tested reference
-    implementation, not the production path; see its STATUS note) equals
-    the XLA banded form in both table-truncation and exact-position
-    modes."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cutesdr_tpu.kernels import resamp1
-    from cutesdr_tpu.ops import resampler as R
-
-    rate = 62500.0 / 48000.0
-    rng = np.random.default_rng(0)
-    n = 16384
-    x = (rng.standard_normal(n)
-         + 1j * rng.standard_normal(n)).astype(np.complex64)
-    for interp in (True, False):
-        p, c = R.init(rate, complex_input=True)
-        cap = R.max_out_for(n, rate)
-        _, y, nv = R.process(p, c, jnp.asarray(x), cap, interp=interp)
-        nv = int(nv)
-        t_int, t_frac = R._times(p, c.t0, jnp.arange(cap, dtype=jnp.float32))
-        z = jnp.concatenate([c.tail, jnp.asarray(x)])
-        yr, yi = resamp1.resample_band(z.real, z.imag, t_int, t_frac,
-                                       cap, 28, rate, interp,
-                                       interpret=True)
-        d = np.abs(np.asarray(yr + 1j * yi)[:nv] - np.asarray(y)[:nv])
-        assert d.max() < 1e-4, (interp, d.max())
+@pytest.mark.parametrize("D", sorted(RATE_FOR_D))
+def test_mixdec_every_decimation(rng, D):
+    """Every decimation the kernel accepts (powers of two 2 ... 512),
+    chained across a carry boundary, with blocks that leave a head longer
+    than the history rows: kernel == XLA nco + fused decimator."""
+    plan = plan_decimation(RATE_FOR_D[D], 20_000.0)
+    assert plan.decimation == D and supported(D)
+    tune = RATE_FOR_D[D] / 7.3
+    md = MixDecimate(plan, tune, interpret=True)
+    n = (md.H + 2 * md.bm + 3) * D
+    head, progs = md.split(n)
+    assert progs == 2 and head == md.H + 3
+    blocks = np.split(_noise(rng, 2 * n, 100), 2)
+    want = _reference(plan, tune, blocks)
+    got = _kernel_run(md, blocks)
+    np.testing.assert_allclose(got, want, atol=5e-5 * np.abs(want).max())
 
 
-def test_scan1_guess_round_matches_xla():
-    """kernels/scan1.guess_round (the fused AGC guess-verify round: A/B
-    select + affine prefix + x[n-1] shift + pattern re-derivation + tie
-    forgiveness in one kernel) matches the open-coded XLA round in
-    ops/agc._two_rate_parallel element for element, including the
-    mismatch count."""
-    import jax.numpy as jnp
-    import numpy as np
-
-    from cutesdr_tpu.kernels.scan1 import guess_round
-    from cutesdr_tpu.ops.util import first_order_recurrence
-
-    rng = np.random.default_rng(1)
-    ra, fa = np.float32(1 / 125.0), np.float32(1 / 312.0)
-    x0 = np.float32(-3.0)
-    for n in (65536, 262144 - 500):
-        pk = jnp.asarray(
-            (rng.standard_normal(n) * 0.3 - 3).astype(np.float32))
-        pat = jnp.asarray((rng.random(n) > 0.5).astype(np.float32))
-        patb = pat > 0.5
-        A = jnp.where(patb, 1.0 - ra, 1.0 - fa)
-        B = jnp.where(patb, ra, fa) * pk
-        x_ref = first_order_recurrence(A, B, x0)
-        prev = jnp.concatenate([jnp.asarray([x0]), x_ref[:-1]])
-        np_ref = pk > prev
-        sv = (1.0 - ra) * prev + ra * pk == (1.0 - fa) * prev + fa * pk
-        mism_ref = int(jnp.sum((np_ref != patb) & (pk != prev) & ~sv))
-
-        x_k, np_k, mi_k = guess_round(pk, pat, x0, ra, fa, interpret=True)
-        assert float(jnp.max(jnp.abs(x_k - x_ref))) < 1e-5
-        assert bool(jnp.all((np_k > 0.5) == np_ref))
-        # the forgiveness predicates (pk != prev, branch-update tie) are
-        # bit-sensitive to prev, and the kernel's prefix associates
-        # differently from associative_scan — a handful of near-tie
-        # elements may be classified differently.  That shifts only the
-        # ROUND COUNT of the caller's while_loop, never the fixed point.
-        assert abs(int(mi_k) - mism_ref) <= 4, (int(mi_k), mism_ref)
+def test_mixdec_split_and_tap_rows():
+    """The head/kernel split covers every output exactly once with all
+    kernel rows in bounds, and the padded tap rows hold the taps in order
+    behind H*D - T front zeros."""
+    for D in sorted(RATE_FOR_D):
+        md = MixDecimate(plan_decimation(RATE_FOR_D[D], 20_000.0), 0.0,
+                         interpret=True)
+        assert md.Q == md.H + 1 and md.bm * D == 4096
+        for n_out in (1, md.H, md.H + 1, md.H + md.bm, 3 * md.bm + 7):
+            head, progs = md.split(n_out * D)
+            assert head + progs * md.bm == n_out
+            if progs:
+                assert head >= md.H                  # first row >= 0
+    assert not supported(1) and not supported(1024) and not supported(48)
+    with pytest.raises(ValueError):
+        MixDecimate(plan_decimation(64e6, 20_000.0), 0.0)
 
 
-def test_scan1_smeter_last_matches_xla():
-    """kernels/scan1.smeter_last (fused attack-EMA + snapped-decay pair,
-    final values only) matches the XLA associative-scan forms in
-    ops/smeter.process for both averagers across grid-carry boundaries
-    (two blocks of 256x128)."""
-    import jax.numpy as jnp
-    import numpy as np
+def test_pallas_decimator_needs_gpu_or_interpret():
+    """Off the GPU an explicit decimator_impl='pallas' raises instead of
+    quietly interpreting; pallas_interpret=True is the test-only way in."""
+    from cutesdr_tpu.pipeline.receiver import ReceiverConfig
 
-    from cutesdr_tpu.kernels.scan1 import smeter_last, smeter_supported
-    from cutesdr_tpu.ops.util import ema, max_affine_recurrence
-
-    rng = np.random.default_rng(2)
-    n = 65536
-    assert smeter_supported(n)
-    mag = jnp.asarray((rng.standard_normal(n) * 10 - 60).astype(np.float32))
-    aa, ad = np.float32(1 / 625.0), np.float32(1 / 31250.0)
-    a0, d0 = np.float32(-120.0), np.float32(-120.0)
-
-    a_ref = ema(aa, mag, a0)
-    d_ref = max_affine_recurrence(1.0 - ad, ad * mag, a_ref, d0)
-    a_k, d_k = smeter_last(mag, aa, ad, a0, d0, interpret=True)
-    assert abs(float(a_ref[-1]) - float(a_k)) < 1e-3
-    assert abs(float(d_ref[-1]) - float(d_k)) < 1e-3
-    assert not smeter_supported(65536 + 128)  # no-padding contract
+    with pytest.raises(ValueError, match="GPU"):
+        ReceiverConfig(decimator_impl="pallas")
+    ReceiverConfig(decimator_impl="pallas", pallas_interpret=True)
+    assert ReceiverConfig().decimator_impl == "fused"      # cpu auto
+    with pytest.raises(ValueError):
+        ReceiverConfig(input_rate=64e6, decimator_impl="pallas",
+                       pallas_interpret=True)
 
 
 def test_mixdec_process_planes_matches_call(rng):
-    """The plane-native mixdec entry (separate re/im planes, in-kernel DC
-    cal and tail DMA — the production receiver path) equals __call__ with
-    the DC offset pre-subtracted, for both the R>1 and the wide-row R=1
-    forms, across a carry boundary."""
-    from cutesdr_tpu.design.decimation_plan import plan_decimation
-
-    for in_rate, to in ((2_000_000.0, 512), (16_000_000.0, 64)):
+    """The plane-native entry (separate re/im planes, DC cal in the
+    epilogue — the production receiver path) equals __call__ with the DC
+    offset pre-subtracted, across a carry boundary, once the carried raw
+    history no longer reaches the output."""
+    for in_rate in (2_000_000.0, 16_000_000.0):
         plan = plan_decimation(in_rate, 20_000.0)
-        tune = in_rate / 17.0
-        md = MixDecimate(plan, tune, tile_out=to, interpret=True)
-        spt = md.TO4 * md.G * md.lane      # samples per tile (G rows/output
-        n = spt * 2                        # in the wide-128 form)
-        x = ((rng.standard_normal(2 * n) + 1j * rng.standard_normal(2 * n))
-             * 100).astype(np.complex64)
+        md = MixDecimate(plan, in_rate / 17.0, interpret=True)
+        n = (md.H + 2 * md.bm + 1) * md.D
+        x = _noise(rng, 2 * n, 100)
         dc = np.complex64(0.37 - 0.21j)
 
         c1 = md.init_carry()
@@ -447,124 +222,11 @@ def test_mixdec_process_planes_matches_call(rng):
             want.append(np.asarray(y2))
         got, want = np.concatenate(got), np.concatenate(want)
         scale = np.abs(want).max()
-        # the tail carried by process_planes is raw (pre-DC); __call__'s is
-        # DC-removed — the second block's first outputs differ by the DC
-        # response of the composed filter, bounded by |dc|*sum|h|
-        h = np.abs(np.asarray(plan.composed_taps())).sum()
-        tol = 5e-5 * scale + np.abs(dc) * h
+        # the tail carried by process_planes is raw (pre-DC), __call__'s is
+        # DC-removed: the outputs whose window reaches the carried history
+        # differ by the DC response of the composed filter
         d = np.abs(got - want)
-        # all but the tail-affected outputs must match tightly
-        n_tail_outputs = -(-md.halo * 2 // plan.decimation)
-        assert d[n_tail_outputs:len(d) // 2].max() < 5e-5 * scale
-        assert d[len(d) // 2 + n_tail_outputs:].max() < 5e-5 * scale
-
-
-def test_fastfir4_batch_matches_per_channel(rng):
-    """Grid-batched (channels, frames) kernel == per-channel streaming
-    calls, with a distinct filter response per channel."""
-    from cutesdr_tpu.kernels.fastfir4 import FastFirFourStep, FastFir4Params
-
-    fs = 62500.0
-    nch = 3
-    ks = [FastFirFourStep(100.0 * (i + 1), 2800.0 - 300.0 * i, 0.0, fs,
-                          interpret=True) for i in range(nch)]
-    bk = ks[0]
-    bparams = FastFir4Params(h2=jnp.stack([k.params.h2 for k in ks]))
-    n = 2 * 1024
-    x = np.stack([(rng.standard_normal(n) + 1j * rng.standard_normal(n)
-                   ).astype(np.complex64) * 50 for _ in range(nch)])
-    bc = jax.tree_util.tree_map(lambda *a: jnp.stack(a),
-                                *[k.init_carry() for k in ks])
-    bc, yb = bk.batch_call(bparams, bc, jnp.asarray(x))
-    for i, k in enumerate(ks):
-        kc, yi = k(k.params, k.init_carry(), jnp.asarray(x[i]))
-        np.testing.assert_array_equal(np.asarray(yb[i]), np.asarray(yi))
-        np.testing.assert_array_equal(np.asarray(bc.tail[i]),
-                                      np.asarray(kc.tail))
-
-
-def test_bank_receiver_pallas_fastfir_matches_xla(rng):
-    """bank_receiver_step with fastfir_impl='pallas' (grid-batched kernel)
-    matches the XLA-filter bank at filter tolerance."""
-    import cutesdr_tpu.pipeline.receiver as rx
-
-    kw = dict(input_rate=2_000_000.0, mode="usb", audio_rate=None,
-              agc_on=False)
-    freqs = [10_000.0, -22_000.0]
-
-    def make_bank(**extra):
-        cfg = rx.ReceiverConfig(**kw, **extra)
-        p0, s0 = rx.init(cfg)
-        ps, ss = [], []
-        for f in freqs:
-            ps.append(rx.tune_params(cfg, p0, f))
-            ss.append(s0)
-        stack = lambda *a: jnp.stack(a)
-        return (cfg, jax.tree_util.tree_map(stack, *ps),
-                jax.tree_util.tree_map(stack, *ss))
-
-    cfg_x, px, sx = make_bank(fastfir_impl="xla")
-    cfg_p, pp, sp = make_bank(fastfir_impl="pallas", pallas_interpret=True)
-    n = cfg_x.block_size
-    x = ((rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 40
-         ).astype(np.complex64)
-    for _ in range(2):
-        sx, ox = rx.bank_receiver_step(cfg_x, px, sx, jnp.asarray(x))
-        sp, op = rx.bank_receiver_step(cfg_p, pp, sp, jnp.asarray(x))
-    a, b = np.asarray(ox.audio), np.asarray(op.audio)
-    scale = np.abs(a).max() + 1e-30
-    np.testing.assert_allclose(b, a, atol=2e-4 * scale)
-
-
-def test_seqloop_fm_matches_xla_scan():
-    """kernels/seqloop.fm_pll_scan (scalar-core sequential loop) runs the
-    identical recurrence as demod/fm._pll_scan: err series exact, state
-    and audio within f32 FMA-reassociation roundoff, including
-    non-multiple-of-tile lengths and chained blocks."""
-    from cutesdr_tpu.demod import fm
-    from cutesdr_tpu.kernels import seqloop
-
-    fs = 62500.0
-    p, c = fm.init(fs)
-    rng = np.random.default_rng(3)
-    for n in (1024, 2048, 4096):
-        x = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
-             * 3000).astype(np.complex64)
-        theta = jnp.arctan2(jnp.imag(jnp.asarray(x)),
-                            jnp.real(jnp.asarray(x)))
-        ph, fr, dc, audio, err = fm._pll_scan(p, c, theta)
-        ph2, fr2, freqs, err2 = seqloop.fm_pll_scan(
-            p.pll_alpha, p.pll_beta, p.nco_limit,
-            c.nco_phase, c.nco_freq, theta, interpret=True)
-        audio2, dc2 = fm._dc_track(p, freqs, c.freq_error_dc)
-        assert float(jnp.max(jnp.abs(err - err2))) == 0.0, n
-        scale = float(jnp.max(jnp.abs(audio))) + 1e-30
-        assert float(jnp.max(jnp.abs(audio - audio2))) / scale < 1e-5, n
-        assert abs(float(ph - ph2)) < 1e-5 and abs(float(fr - fr2)) < 1e-6
-        # chain: state carries on to the next block consistently
-        c = c._replace(nco_phase=ph2, nco_freq=fr2, freq_error_dc=dc2)
-
-
-def test_seqloop_sam_matches_xla_scan():
-    """kernels/seqloop.sam_pll_scan vs demod/sam._pll_scan: the emitted
-    pre-update phase sequence and final state are bitwise equal in
-    interpret mode (identical op order; no reassociation in this body)."""
-    from cutesdr_tpu.demod import sam
-    from cutesdr_tpu.kernels import seqloop
-
-    fs = 62500.0
-    p, c = sam.init(fs)
-    rng = np.random.default_rng(4)
-    for n in (1024, 2048, 5120):
-        x = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
-             * 3000).astype(np.complex64)
-        theta = jnp.arctan2(jnp.imag(jnp.asarray(x)),
-                            jnp.real(jnp.asarray(x)))
-        ph, fr, prev = sam._pll_scan(p, c, theta)
-        ph2, fr2, prev2 = seqloop.sam_pll_scan(
-            p.pll_alpha, p.pll_beta, p.nco_limit, c.nco_phase,
-            c.nco_freq, theta, interpret=True)
-        assert float(jnp.max(jnp.abs(prev - prev2))) == 0.0, n
-        assert float(ph) == float(ph2) and float(fr) == float(fr2)
-        c = c._replace(nco_phase=ph2, nco_freq=fr2)
-
+        h = md.H + 1
+        nb = n // md.D
+        assert d[h:nb].max() < 5e-5 * scale
+        assert d[nb + h:].max() < 5e-5 * scale

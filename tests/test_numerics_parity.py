@@ -1,4 +1,4 @@
-"""End-to-end numerics parity: the float32 TPU chain vs the float64
+"""End-to-end numerics parity: the float32 chain vs the float64
 per-sample oracle chain (the reference's double-precision math) on the same
 recorded IQ.
 

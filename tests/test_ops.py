@@ -1,4 +1,4 @@
-"""Op-level tests: each vectorized TPU op vs its per-sample oracle."""
+"""Op-level tests: each vectorized op vs its per-sample oracle."""
 
 import jax
 import jax.numpy as jnp
@@ -175,15 +175,20 @@ def test_fused_block_split_invariance(rng):
 
 # ---------------------------------------------------------------- fastfir --
 
-def test_fastfir_matches_oracle(rng):
+@pytest.mark.parametrize("nfft,ntaps", [(2048, 1025), (4096, 3073),
+                                        (4096, 2049)])
+def test_fastfir_matches_oracle(rng, nfft, ntaps):
+    """The jnp.fft overlap-save filter (cuFFT on the GPU) equals the
+    per-sample direct-form oracle at the reference size and the larger
+    frame/tap pairs the latency planner picks."""
     fs = 15625.0
-    h = design_fastfir(100.0, 2800.0, 0.0, fs)
+    h = design_fastfir(100.0, 2800.0, 0.0, fs, fft_size=nfft, fir_size=ntaps)
     p = fastfir.FastFirParams(h_freq=jnp.asarray(h, C128))
-    c = fastfir.FastFirCarry(tail=jnp.zeros(fastfir.NFIR - 1, C128))
-    n = fastfir.VALID * 4
+    c = fastfir.FastFirCarry(tail=jnp.zeros(ntaps - 1, C128))
+    n = fastfir.valid_per_frame(nfft, ntaps) * 4
     x = (rng.standard_normal(n) + 1j * rng.standard_normal(n)) * 100
     _, got = run_blocks(lambda c, b: fastfir.process(p, c, b), c, x, 2)
-    want = oracles.FastFirOracle(h)(x)
+    want = oracles.FastFirOracle(h, nfft, ntaps)(x)
     np.testing.assert_allclose(got, want, rtol=1e-8, atol=1e-6)
 
 
@@ -266,6 +271,56 @@ def test_agc_hang_parallel_is_steady_state():
             maxerr = max(maxerr, float(e))
     assert fallbacks == 0, f"{fallbacks} blocks fell back to the scan"
     assert maxerr < 1e-3, maxerr
+
+
+def _two_rate_loop(rise, fall, x0, pk):
+    out = np.empty_like(pk)
+    x = x0
+    for i, v in enumerate(pk):
+        a = rise if v > x else fall
+        x = (1 - a) * x + a * v
+        out[i] = x
+    return out
+
+
+@pytest.mark.parametrize("n", [65536, 262144])
+@pytest.mark.parametrize("solver", ["agc", "smeter"])
+def test_parallel_averagers_match_sequential_loop(solver, n):
+    """The log-depth solvers the levels stage runs on every block — the
+    AGC's guess-verify two-rate averager and the S-meter's attack EMA +
+    snapped decay — against a plain sequential loop over a
+    flagship-sized f32 block."""
+    rng = np.random.default_rng(n)
+    if solver == "agc":
+        fs = 62500.0
+        cfg = agc.AgcConfig(agc_on=True, use_hang=False, sample_rate=fs)
+        p = agc.make_params(cfg, -100.0, 30.0, 0.0, 200.0)
+        walk = np.cumsum(rng.standard_normal(n)) / np.sqrt(n)
+        peak = np.clip(-3 + walk + 0.3 * rng.standard_normal(n), -8, 0)
+        peak = peak.astype(np.float32)
+        x, ok = agc._two_rate_parallel(p.attack_rise_alpha,
+                                       p.attack_fall_alpha,
+                                       jnp.float32(-5.0), jnp.asarray(peak),
+                                       agc.GUESS_ITERS)
+        assert bool(ok)
+        want = _two_rate_loop(float(p.attack_rise_alpha),
+                              float(p.attack_fall_alpha), -5.0,
+                              peak.astype(np.float64))
+        np.testing.assert_allclose(np.asarray(x), want, atol=2e-4)
+    else:
+        fs = 62500.0
+        p, c = smeter.init(fs)
+        iq = ((rng.standard_normal(n) + 1j * rng.standard_normal(n))
+              * 300 * np.exp(np.linspace(0, 3, n))).astype(np.complex64)
+        c2, mag = smeter.process(p, c, jnp.asarray(iq))
+        m = np.asarray(mag, np.float64)
+        aa, ad = float(p.attack_alpha), float(p.decay_alpha)
+        a = d = -120.0
+        for v in m:
+            a = (1 - aa) * a + aa * v
+            d = max((1 - ad) * d + ad * v, a)
+        assert abs(float(c2.attack_ave) - a) < 1e-3
+        assert abs(float(c2.decay_ave) - d) < 1e-3
 
 
 def test_agc_manual_mode(rng):

@@ -18,21 +18,11 @@ Two assertions per fixture:
 import json
 import os
 
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from cutesdr_tpu.pipeline.receiver import Receiver, ReceiverConfig
-
-FIXDIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
-NAMES = ("usb", "lsb", "cwu", "am", "sam", "fm", "usb2m")
-
-
-def _snr_db(want, got, skip):
-    n = min(len(want), len(got))
-    err = got[skip:n] - want[skip:n]
-    return 10 * np.log10(np.mean(want[skip:n] ** 2)
-                         / max(np.mean(err ** 2), 1e-30))
+from cutesdr_tpu.testbench import refgold
+from cutesdr_tpu.testbench.refgold import FIXDIR, NAMES
 
 
 @pytest.mark.parametrize("name", NAMES)
@@ -42,7 +32,7 @@ def test_oracle_matches_reference_binary(name):
     ref = np.load(os.path.join(FIXDIR, f"refgold_{name}.npz"))
     rmeta = json.loads(str(ref["meta"]))
     gold = np.load(os.path.join(FIXDIR, f"golden_{name}.npz"))
-    snr = _snr_db(ref["audio"], gold["audio"], rmeta["skip"])
+    snr = refgold.snr_db(ref["audio"], gold["audio"], rmeta["skip"])
     assert snr > rmeta["min_snr_oracle_db"], (
         f"{name}: f64 oracle vs reference-binary audio SNR {snr:.1f} dB "
         f"(pinned bound {rmeta['min_snr_oracle_db']}, at generation "
@@ -54,30 +44,10 @@ def test_stereo_sam_matches_reference_binary():
     """The stereo SAM chain (Hilbert sideband split, LSB->left/USB->right,
     dsp/samdemod.cpp:149-156) against the reference binary's own STEREO
     ProcessData overload — no re-derived oracle in the loop."""
-    d = np.load(os.path.join(FIXDIR, "refgold_sam_stereo.npz"))
-    meta = json.loads(str(d["meta"]))
-    cfg = ReceiverConfig(input_rate=meta["input_rate"], mode="sam",
-                         tune_freq=meta["tune_freq"], audio_rate=None,
-                         stereo=True, agc_on=True, agc_thresh_db=-90.0)
-    rx = Receiver(cfg)
-    got = []
-    for b in range(meta["n_blocks"]):
-        sl = slice(b * cfg.block_size, (b + 1) * cfg.block_size)
-        out = rx.process(jnp.asarray(
-            d["iq_re"][sl] + 1j * d["iq_im"][sl], jnp.complex64))
-        a = np.asarray(out.audio)
-        got.append(np.stack([a.real, a.imag], axis=-1).astype(np.float64))
-    got = np.concatenate(got)
-    want = d["audio"]
-    skip = meta["skip"]
-    m = min(len(want), len(got))
-    err = got[skip:m] - want[skip:m]
-    snr = 10 * np.log10(np.mean(want[skip:m] ** 2)
-                        / max(np.mean(err ** 2), 1e-30))
-    assert snr > meta["min_snr_prod_db"], (
+    snr, bound = refgold.stereo_sam()
+    assert snr > bound, (
         f"stereo SAM vs reference binary SNR {snr:.1f} dB (pinned bound "
-        f"{meta['min_snr_prod_db']}, at generation "
-        f"{meta['measured_snr_prod_db']})")
+        f"{bound})")
 
 
 def test_display_path_matches_reference_binary():
@@ -124,82 +94,25 @@ def test_resampler_matches_reference_binary():
     sinc-grid, dsp/fractresampler.cpp's table semantics) against the
     reference binary's CFractResampler on the same 62.5k->48k stream:
     identical output COUNTS and >=110 dB SNR."""
-    import jax.numpy as jnp2
-
-    from cutesdr_tpu.ops import resampler as R
-
-    d = np.load(os.path.join(FIXDIR, "refgold_resampler.npz"))
-    meta = json.loads(str(d["meta"]))
-    x = d["iq_re"].astype(np.float32) + 1j * d["iq_im"].astype(np.float32)
-    ref = d["out_re"] + 1j * d["out_im"]
-    chunk = meta["chunk"]
-    p, c = R.init(meta["rate"], complex_input=True)
-    got = []
-    for pos in range(0, len(x), chunk):
-        cap = R.max_out_for(chunk, meta["rate"])
-        c, y, nv = R.process(p, c, jnp2.asarray(x[pos:pos + chunk]),
-                             cap, interp=False)
-        got.append(np.asarray(y)[:int(nv)])
-    got = np.concatenate(got)
-    assert len(got) == len(ref), (len(got), len(ref))
-    skip = meta["skip"]
-    err = np.abs(got[skip:] - ref[skip:])
-    snr = 10 * np.log10(np.mean(np.abs(ref[skip:]) ** 2)
-                        / max(np.mean(err ** 2), 1e-30))
-    assert snr > 110.0, snr
+    snr, bound, n_got, n_ref = refgold.resampler()
+    assert n_got == n_ref, (n_got, n_ref)
+    assert snr > bound, snr
 
 
 def test_blanker_matches_reference_binary():
     """ops/noiseblanker against the reference binary's CNoiseProc on an
     impulse-laden stream: identical blanked-sample sets and >=140 dB on
     the passed-through samples."""
-    import jax.numpy as jnp2
-
-    from cutesdr_tpu.ops import noiseblanker as NB
-
-    d = np.load(os.path.join(FIXDIR, "refgold_blanker.npz"))
-    meta = json.loads(str(d["meta"]))
-    x = d["iq_re"].astype(np.float32) + 1j * d["iq_im"].astype(np.float32)
-    ref = d["out_re"] + 1j * d["out_im"]
-    cfg = NB.BlankerConfig(True, meta["threshold"], meta["width_us"],
-                           meta["fs"])
-    carry = NB.init_carry(cfg, jnp2.complex64, jnp2.float32)
-    got = []
-    for pos in range(0, len(x), meta["chunk"]):
-        carry, y = NB.process(cfg, carry,
-                              jnp2.asarray(x[pos:pos + meta["chunk"]]))
-        got.append(np.asarray(y))
-    got = np.concatenate(got)
-    skip = meta["skip"]
-    np.testing.assert_array_equal(np.abs(got[skip:]) == 0,
-                                  np.abs(ref[skip:]) == 0)
-    err = np.abs(got[skip:] - ref[skip:])
-    snr = 10 * np.log10(np.mean(np.abs(ref[skip:]) ** 2)
-                        / max(np.mean(err ** 2), 1e-30))
-    assert snr > 140.0, snr
+    snr, bound, same_set = refgold.blanker()
+    assert same_set
+    assert snr > bound, snr
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_production_matches_reference_binary(name):
     """The f32 production chain replayed on the fixture IQ agrees with the
     reference binary's audio within the quantization bound."""
-    ref = np.load(os.path.join(FIXDIR, f"refgold_{name}.npz"))
-    rmeta = json.loads(str(ref["meta"]))
-    gold = np.load(os.path.join(FIXDIR, f"golden_{name}.npz"))
-    cfg = ReceiverConfig(input_rate=rmeta["input_rate"], mode=rmeta["mode"],
-                         tune_freq=rmeta["tune_freq"],
-                         cw_offset=rmeta["cw_offset"],
-                         audio_rate=None, agc_on=True, agc_thresh_db=-90.0)
-    rx = Receiver(cfg)
-    got = []
-    for b in range(rmeta["n_blocks"]):
-        sl = slice(b * cfg.block_size, (b + 1) * cfg.block_size)
-        out = rx.process(jnp.asarray(
-            gold["iq_re"][sl] + 1j * gold["iq_im"][sl], jnp.complex64))
-        got.append(np.asarray(out.audio, np.float64))
-    got = np.concatenate(got)
-    snr = _snr_db(ref["audio"], got, rmeta["skip"])
-    assert snr > rmeta["min_snr_prod_db"], (
+    snr, bound = refgold.production(name)
+    assert snr > bound, (
         f"{name}: f32 chain vs reference-binary audio SNR {snr:.1f} dB "
-        f"(pinned bound {rmeta['min_snr_prod_db']}, at generation "
-        f"{rmeta['measured_snr_prod_db']})")
+        f"(pinned bound {bound})")
